@@ -1,13 +1,13 @@
-"""TPU-native deferred-shading renderer (JAX/XLA/Pallas).
+"""Deferred-shading renderer in JAX/XLA with Pallas-Triton GPU kernels.
 
 A from-scratch framework with the capabilities of the reference D3D12 deferred
 renderer (t0yman/d3d12-deferred-renderer): OBJ loading with vertex dedup, unified
 vertex/index scene layout, two-pass deferred pipeline (G-buffer -> lighting),
 DirectXMath-parity LH math, per-frame animation, triple-buffered presentation —
-redesigned TPU-first: the whole frame is one jitted XLA program, rasterization is a
-Pallas tile-binned kernel, lighting scales to hundreds of point lights with per-tile
-culling, and multi-chip scaling shards screen tiles / frame batches over a device
-mesh.
+redesigned for an accelerator: the whole frame is one jitted XLA program,
+rasterization is a tile-binned Pallas-Triton kernel, lighting scales to hundreds of
+point lights with per-tile culling (a Pallas-Triton shading kernel), and multi-device
+scaling shards screen bands / frame batches / triangles over a device mesh.
 """
 from .config import FLAGSHIP_CONFIG, REFERENCE_CONFIG, RendererConfig
 from .frame import render, render_batch, render_gbuffer, step_frame, step_frame_jit

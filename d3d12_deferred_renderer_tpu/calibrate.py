@@ -1,8 +1,8 @@
 """Scene-budget auto-calibration.
 
 Every capacity cap in RendererConfig (binning tier budgets, record-stream cap,
-per-tile triangle cap, sparse-PCF tile cap, live-light list depth) trades HBM
-traffic / sort keys against headroom, and the right value depends on the scene
+per-tile triangle cap, sparse-PCF tile cap, per-tile light-list depth) trades
+memory traffic / sort keys against headroom, and the right value depends on the scene
 and camera path.  FLAGSHIP_CONFIG's round-3 values were derived by hand from
 orbit sweeps of the benchmark scene (config.py:268-289); this module automates
 exactly that procedure for ANY scene so the perf contract doesn't collapse to
@@ -18,7 +18,7 @@ at runtime (the no-silent-drop contract is unchanged); calibration just makes
 the margins principled.
 
 The reference has no analog (all constants are compile-time, main.cpp); this
-is infrastructure the TPU design needs because static shapes are part of the
+is infrastructure the design needs because static shapes are part of the
 compiled program.
 """
 from __future__ import annotations
@@ -97,17 +97,12 @@ def _measure_frame(state: SceneState, cfg: RendererConfig):
     total_pairs = jnp.sum(tile_counts)
 
     # Covered (8, 128) screen tiles for the sparse-PCF cap, and live lights
-    # per tile for the fused light-list depth — both need the frame depth.
+    # per light-cull tile for the light-list depth — both need the frame depth.
+    from .ops import dispatch
     from .ops.lighting import cull_lights_to_tiles
+    from .ops.lighting_pallas import TILE
 
-    if cfg.use_pallas and jax.default_backend() == "tpu":
-        from .ops.raster_pallas import rasterize_depth
-
-        depth = rasterize_depth(packed, aabb, cfg)
-    else:
-        from .ops.raster_ref import rasterize_packed
-
-        depth = rasterize_packed(packed, H, W).depth
+    depth, _ = dispatch.rasterize_depth(packed, aabb, cfg)
     d_t = (
         depth.reshape(H // 8, 8, W // 128, 128).transpose(0, 2, 1, 3)
         .reshape(-1, 8 * 128)
@@ -119,7 +114,7 @@ def _measure_frame(state: SceneState, cfg: RendererConfig):
     L = state.lights.num_point
     if L:
         tl = cull_lights_to_tiles(
-            depth, state.lights, cfg, vp, tile=(TH, TW), max_per_tile=L
+            depth, state.lights, cfg, vp, tile=TILE, max_per_tile=L
         )
         light_max = jnp.max(tl.counts)
     else:
@@ -210,7 +205,7 @@ def autotune(
     )
     k_cap = min(_round_up(k_max * (1 + margin), 8), T)
     pcf_cap = min(_round_up(covered_max * (1 + margin), 8), NT)
-    # Live-light list depth (CHUNK=16-aligned; the kernel pads ids to chunks).
+    # Per-tile light-list depth.
     L = state.lights.num_point
     light_cap = min(_round_up(max(lights_max, 1) * (1 + margin), 16), max(L, 1))
 
@@ -231,7 +226,7 @@ def autotune(
         # sparse-PCF path binds on the freshly calibrated budget on every
         # scene instead of a stale scene-specific override (round-4 advisor).
         shadow_tiles_cap_lit=0,
-        max_live_lights_per_tile=light_cap,
+        max_lights_per_tile=light_cap,
     )
     report = {
         "ladder": (e, em, el),
@@ -240,7 +235,7 @@ def autotune(
         "stream_cap": stream_cap,
         "max_tris_per_tile": k_cap,
         "shadow_tiles_cap": pcf_cap,
-        "max_live_lights_per_tile": light_cap,
+        "max_lights_per_tile": light_cap,
         "measured": {
             "tile_count_max": k_max,
             "pairs_max": pairs_max,
@@ -276,7 +271,7 @@ def autotune_shadow(
     from .ops.transform import TRI_VALID
 
     S = cfg.shadow_map_size
-    TH, TW = (16, 128) if S % 128 == 0 else (cfg.tile_h, cfg.tile_w)
+    TH, TW = cfg.tile_h, cfg.tile_w  # shadow_bin_config keeps the tile
     nty, ntx = -(-S // TH), -(-S // TW)
     NT = nty * ntx
     shadow_cfg = dataclasses.replace(cfg, width=S, height=S)

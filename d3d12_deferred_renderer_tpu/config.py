@@ -2,8 +2,8 @@
 
 The reference has no config system (SURVEY.md §5): every knob is a compile-time
 constant in source/main.cpp or hardcoded in the HLSL.  This dataclass exposes each of
-those constants with the reference value as its default, plus the knobs the TPU build
-adds on top (PBR, light culling, post chain, tiling, batching).
+those constants with the reference value as its default, plus the knobs this
+renderer adds on top (PBR, light culling, post chain, tiling, batching).
 """
 from __future__ import annotations
 
@@ -76,9 +76,7 @@ class RendererConfig:
     shadow_map_size: int = 1024
     # Shadow-visibility sampling rate divisor: 1 = compare at every pixel
     # (exact); d > 1 compares at every d-th pixel and bilinearly upsamples the
-    # visibility (softer penumbra edges).  Per-pixel gathers from the shadow
-    # map cost ~11 ns each on TPU (~92 ms/frame at 1080p x 4 PCF taps), so the
-    # TPU showcase config trades edge sharpness for rate here.
+    # visibility (softer penumbra edges).
     shadow_vis_downsample: int = 1
 
     # Sparse PCF tile cap: shadow visibility samples only screen tiles that
@@ -91,8 +89,8 @@ class RendererConfig:
     # FLAGSHIP_CONFIG opts in (the benchmark scene covers ~53% of tiles).
     shadow_tiles_cap: int = 0
 
-    # Sparse-PCF tile cap when a lit-facing mask prunes the compaction (the
-    # fused deferred-directional split passes lit_mask — shadows.py): tiles
+    # Sparse-PCF tile cap when a lit-facing mask prunes the compaction
+    # (shadow_visibility's lit_mask): tiles
     # with no NdotL>0 geometry pixel never consume vis, so the LIT-pruned
     # covered count is all the cap must hold, and the PCF gather count scales
     # with the STATIC cap.  0 = inherit shadow_tiles_cap (the safe default,
@@ -110,14 +108,7 @@ class RendererConfig:
     # own window), compacted to shadow_bad_quads_cap entries; more bad quads
     # than the cap raises the LOUD overflow counter (never a silent drop).
     # -1 = auto (1/8 of the sparse pixel budget).
-    #
-    # OFF by default: measured on-chip (2026-08-19, BENCH.md "tried and
-    # rejected") the gather savings never materialize — the wide-quad fallback
-    # at the safe auto cap costs +4.8 ms on config 4 (22.9 vs 18.1 ms), and a
-    # cap tight enough to be cheap (<=4096) both overflows on the benchmark
-    # scene and only reaches PARITY with the per-pixel quad path (the 64-byte
-    # window rows gather ~half as fast per row as the 32-byte quad rows, and
-    # the 9-case lane-select adds VPU work the saved gathers just pay for).
+    # OFF by default: no configuration turns it on.
     shadow_window_gather: bool = False
     shadow_bad_quads_cap: int = -1
 
@@ -153,9 +144,13 @@ class RendererConfig:
     # teleport the orbiting camera at every wrap (scene.animate).
     orbit_speed: float = 1.0
 
-    # --- Rasterizer / TPU tiling knobs ---
-    tile_h: int = 8     # screen tile height (VPU sublane multiple)
-    tile_w: int = 128   # screen tile width (VPU lane width)
+    # --- Rasterizer tiling knobs ---
+    # Screen tile: the binning grid and one raster-kernel program.  Powers of
+    # two (a Triton block); 8 x 128 measured within ~6% of 16 x 64 and
+    # 32 x 32 on the flagship frame (PERF.md), and the binning budgets below
+    # are sized on it.
+    tile_h: int = 8
+    tile_w: int = 128
     max_tris_per_tile: int = 256  # binning cap per tile (K)
     # Sort-based binning (large scenes): four expansion tiers sized so the
     # sort-key array stays small (its sort is the binning cost).  Triangles
@@ -183,23 +178,10 @@ class RendererConfig:
     # Exceeding a positive budget drops triangles LOUDLY via the overflow
     # counter, like every other binning cap.
     bin_max_small: int = -1
-    # Compacted record-stream capacity (rows = binned (tile, tri) pairs rounded
-    # up to chunk alignment per tile).  The Pallas kernels DMA per-step segment
-    # spans of this stream instead of a dense [tiles, K] block that is mostly
-    # padding; exceeding the cap clamps tail tiles and reports overflow.
+    # Compacted record-stream capacity (rows = binned (tile, tri) pairs): the
+    # raster kernel reads each tile's segment of this stream; exceeding the
+    # cap clamps tail tiles and reports overflow.
     bin_stream_cap: int = 65536
-    # Double-buffered stream-segment DMA (raster_pallas._copy_group_segment_db):
-    # each grid step prefetches the NEXT step's record-stream segment into the
-    # other half of a doubled VMEM scratch and waits only on its own half
-    # (started one step earlier), hiding the per-step segment copy behind the
-    # raster/shade body instead of stalling on it.  Output is bit-identical by
-    # construction (same rows, same fetch offsets); VMEM scratch cost doubles
-    # (the flagship 1080p group spans ~3.9 MB -> ~7.9 MB of the ~16 MB budget).
-    stream_dma_db: bool = False
-    # Per-tile light-list length for the FUSED kernel's per-tile lists (the
-    # exact depth-aware cull keeps ~1-20 lights/tile; the list DMA cost scales
-    # with this).  Overflow is reported loudly if a tile exceeds it.
-    max_live_lights_per_tile: int = 48
     max_lights_per_tile: int = 64  # light-culling cap per tile
     # Runtime overflow signal (debug-layer philosophy, main.cpp:379-390): when a
     # tile's triangle or light list exceeds its cap the excess is dropped; with
@@ -207,72 +189,9 @@ class RendererConfig:
     # that happens instead of failing silently.  render_stats() exposes the
     # overflow count for callers that want to assert/raise.
     overflow_warn: bool = True
-    use_pallas: bool = True  # Pallas kernels on TPU; pure-XLA fallback otherwise
-    # Fused tiled-deferred mono-kernel (ops/fused.py): raster + G-buffer +
-    # lighting + tonemap in one Pallas program, G-buffer VMEM-only.  Covers the
-    # full PBR feature stack including config 4 (shadows enter as a visibility
-    # input plane, normal mapping runs in-kernel, bloom flips the kernel to
-    # linear-HDR output); requires use_pallas and the TPU backend, staged
-    # pipeline otherwise (frame.py:_fused_eligible).
-    fused: bool = False
-    # Fused Pallas triangle-setup kernel (ops/setup_pallas.py): the whole
-    # primitive-setup front end (transform + near clip + cull + record packing)
-    # as ONE kernel launch instead of ~a hundred small XLA fusions.  Equal to
-    # the XLA setup up to FMA-contraction rounding (~ULPs; tolerance-pinned by
-    # tests — see the module docstring, NOT bit-identical); requires the
-    # host-pre-expanded fv column buffers and the TPU backend (XLA setup
-    # otherwise).  Measured on-chip (tools/ab_setup_kernel.py, 2026-08-19):
-    # headline 7.83 -> 7.00 ms, config-4 18.72 -> 17.71 ms, final frames
-    # bit-identical (max u8 delta 0) — FLAGSHIP_CONFIG turns it on; the
-    # reference-parity default stays off (the XLA setup is the semantics
-    # oracle the tests compare against).
-    setup_pallas: bool = False
-    # In-kernel light culling (fused path): instead of a depth-only Pallas
-    # prepass feeding the XLA tile cull (whose per-tile id lists the kernel
-    # DMAs), the mono-kernel culls every point light against each sub-tile's
-    # EXACT world-space pixel bounds — two eye-distance slabs over the world
-    # positions it already reconstructed from its own rastered depth — then
-    # compacts the live ids in VMEM (ascending id order, same as the XLA
-    # lists) and runs the unchanged chunked-sublane light loop.  Culling is
-    # exact-conservative either way (a pixel within a light's radius lies in
-    # its slab's AABB, and the falloff window is zero at the radius), so the
-    # image matches the prepass path within the usual sub-LSB accumulation
-    # reassociation.  On no-shadow configs this deletes the depth prepass +
-    # XLA cull + per-tile list DMA from the frame; with shadows the prepass
-    # stays (PCF visibility needs it) and only the cull/list work disappears.
-    # Live lights beyond max_live_lights_per_tile raise the LOUD overflow
-    # counter, never a silent drop (the in-kernel bounds are tighter than the
-    # prepass slab corners, so a cap that holds for the XLA cull holds here).
-    inkernel_light_cull: bool = False
-    # Deferred-directional split (fused path, shadows on): the mono-kernel
-    # skips the directional term and emits its depth / decoded-normal / mesh-id
-    # planes alongside the local HDR; XLA then computes PCF visibility from
-    # the KERNEL's depth plane (bit-identical to the prepass depth — pinned
-    # invariant) and adds vis * directional-GGX using the staged path's
-    # lighting code over the kernel's own G-buffer planes.  This breaks the
-    # vis -> prepass dependency: combined with inkernel_light_cull the
-    # depth-only prepass leaves the shadow frame entirely (nothing consumes
-    # it), trading ~2 ms of prepass + cull for ~0.2 ms of extra plane IO.
-    # The directional term reassociates from first to last in the radiance
-    # sum (sub-LSB); parity tests bound the split against the unsplit fused
-    # path and the staged oracle at <= 1 u8 LSB in interpret mode.
-    #
-    # OFF by default: measured on-chip (tools/ab_deferred_directional.py,
-    # 2026-08-19) the XLA directional pass costs what the deleted prepass +
-    # cull save — config-4 16.41 ms unsplit vs 16.43 ms split+ik (wash), and
-    # split WITHOUT the in-kernel cull is strictly worse (17.42 ms: the
-    # prepass stays for the XLA cull, so only vis moves while the full-screen
-    # XLA GGX is added).  Kept as a working, tested path: on hardware where
-    # elementwise XLA is relatively cheaper than Pallas launches the
-    # trade-off flips.
-    deferred_directional: bool = False
-    # Deferred-directional resolve in Mosaic (split path only): the
-    # vis * directional-GGX add over the kernel's emitted planes runs as a
-    # per-tile-row Pallas kernel (fused.directional_resolve_pallas) instead of
-    # the full-screen XLA pass whose ~1.8 ms at 1080p made the round-3 split a
-    # wash.  The XLA block remains the oracle (CPU path, and the comparison
-    # target in tests); flag only matters when deferred_directional is on.
-    split_resolve_pallas: bool = True
+    # Hand-written Pallas-Triton kernels on a GPU (ops/dispatch.py); False
+    # runs the plain-XLA oracles everywhere.
+    use_pallas: bool = True
 
     @property
     def aspect(self) -> float:
@@ -292,14 +211,10 @@ REFERENCE_CONFIG = RendererConfig()
 # contributing light (the benchmark's light density exceeds 64/tile even with
 # depth-aware culling — a smaller cap silently under-shades).
 #
-# Every scene-dependent budget below is reproducible from calibrate.autotune:
-# tools/flagship_autotune.py (2026-08-21, on-chip) derives the SAME tier
-# ladder and budgets within margin philosophy (the tool applies a blanket 30%
-# where these carry measured 8-24%), and every shipped cap exceeds the tool's
-# measured orbit maxima (tile max 414, pairs 26,535, covered 1,068, lights
-# 114).  The shipped values win the same-process A/B (206.4 vs 202.2 FPS
-# headline, 72.0 vs 67.0 config-4) — see BENCH.md "Flagship budgets vs
-# calibrate.autotune".
+# Every scene-dependent budget below is reproducible from calibrate.autotune,
+# which derives the same tier ladder over the yaw orbit (measured orbit maxima
+# on this scene: tile max 414, pairs 26,535, covered 1,068 tiles); every cap
+# exceeds them and overflows LOUDLY when a scene does not fit.
 FLAGSHIP_CONFIG = dataclasses.replace(
     REFERENCE_CONFIG,
     width=1920,
@@ -307,17 +222,12 @@ FLAGSHIP_CONFIG = dataclasses.replace(
     shading="pbr",
     max_tris_per_tile=512,
     max_lights_per_tile=256,
-    # Exact culling keeps many live lights on far-plane tiles (their world
-    # AABBs are huge): 48 overflowed 16 tiles, 96 still overflowed 2; 128 is
-    # verified overflow-free on the benchmark scene.
-    max_live_lights_per_tile=128,
-    # Binning tiers tuned to the benchmark scene's measured footprint
-    # distribution over the full yaw orbit (2026-08-19, 24 samples): live
-    # records max 11,215 of 47,812 (backface cull + unused clip slots), fp<=2
-    # max 9,224, fp in 3..8 max 1,957, fp in 9..64 max 36, fp>64 max 5.
-    # Budgets carry ~30%+ margin; total sort keys drop ~3.5x (256k -> 74k)
-    # vs the untuned tiers, and the stream cap covers the measured max 26,429
-    # binned pairs with ~24% margin.  Every budget overflows LOUDLY.
+    # Binning tiers sized on the benchmark scene's footprint distribution
+    # over the full yaw orbit (24 samples): live records max 11,215 of
+    # 47,812 (backface cull + unused clip slots), fp<=2 max 9,224, fp in 3..8
+    # max 1,957, fp in 9..64 max 36, fp>64 max 5.  Budgets carry ~30%+
+    # margin, and the stream cap covers the max 26,429 binned pairs with
+    # ~24% margin.  Every budget overflows LOUDLY.
     bin_expand=2,
     bin_expand_medium=8,
     bin_max_medium=3072,
@@ -327,38 +237,9 @@ FLAGSHIP_CONFIG = dataclasses.replace(
     bin_max_small=12288,
     bin_stream_cap=32768,
     # Sparse PCF (sample only geometry-covered tiles): the PCF gather count
-    # scales with the STATIC cap, not the covered count, so a tight cap is
-    # worth real milliseconds.  Measured over the full 2*pi yaw orbit
-    # (40 samples, 2026-08-19): covered tiles max 1070 / 2025, mean 1062; the
-    # fused split additionally prunes lit-facing-empty tiles (max 1003 lit,
-    # tools/lit_tiles.py, 2026-08-20).  1160 covers the UNPRUNED max (the
-    # staged path takes no lit mask) with ~8% margin and stays a multiple
-    # of 8.  A scene/viewpoint exceeding it drops shadows LOUDLY via the
-    # overflow counter, and bench's full-orbit sweep gates on it.
+    # scales with the STATIC cap, not the covered count.  Covered tiles over
+    # the full yaw orbit (40 samples): max 1070 / 2025; 1160 carries ~8%
+    # margin and stays a multiple of 8.  A scene or viewpoint exceeding it
+    # drops shadows LOUDLY via the overflow counter.
     shadow_tiles_cap=1160,
-    # Lit-pruned cap for the fused split (the shipped config-4 path): the
-    # lit-facing prune's orbit max is 1003 tiles (tools/lit_tiles.py,
-    # 16-sample full-orbit sweep, mean 995, spread 982-1003); 1104 carries
-    # 10% margin, stays a multiple of 8, and cuts the static PCF gather
-    # count ~5% vs the unpruned 1160.  Paths without a lit mask (staged)
-    # keep using shadow_tiles_cap; overflow stays loud either way.
-    shadow_tiles_cap_lit=1104,
-    # Fused Pallas triangle setup: measured 0.8-1.0 ms faster per frame with
-    # bit-identical output (see the flag's docstring above).
-    setup_pallas=True,
-    # In-kernel light culling: measured 6.93 -> 5.80 ms on the headline
-    # (tools/ab_inkernel_cull.py, 2026-08-19) — the depth prepass, the XLA
-    # tile cull, and the per-tile id-list DMA all drop out of the no-shadow
-    # frame.  WITH shadows it measured a 0.25 ms wash (the prepass stays for
-    # PCF visibility, so only the cull/list work disappears while the kernel
-    # gains the cull itself) — shadow configs derived from this one should
-    # flip it back off (bench/tools do).
-    inkernel_light_cull=True,
-    # Double-buffered stream-segment DMA: measured on-chip
-    # (tools/ab_stream_db.py, 2026-08-20, same-process A/B) headline
-    # 5.970 -> 5.805 ms and config-4 14.472 -> 14.331 ms, frames BIT-identical
-    # (max u8 delta 0) on both — the next step's segment copy rides under the
-    # current step's raster/shade body.  VMEM scratch doubles (~3.9 -> ~7.9 MB
-    # at this config), still well inside the ~16 MB budget.
-    stream_dma_db=True,
 )

@@ -3,9 +3,9 @@
 The reference concatenates every loaded mesh into ONE unified vertex buffer and ONE
 unified index buffer with per-mesh offsets (source/main.cpp:836-913), then draws each
 mesh via DrawIndexedInstanced(numIndices, 1, ibOffset, vbOffset, 0) (main.cpp:240).
-That unified layout maps perfectly onto TPU: one big SoA vertex array means vertex
-transform is a single large batched op on the MXU, with a per-triangle mesh id used to
-gather the right model matrix.
+That unified layout maps directly onto JAX: one big SoA vertex array means vertex
+transform is a single large batched op, with a per-triangle mesh id used to select
+the right model matrix.
 
 Host-side data is numpy (cheap, done once at load); device upload happens when the
 Scene pytree is built (scene.py).
@@ -170,7 +170,7 @@ def build_instanced_geometry(
 
     `instance_of[j]` names the mesh each instance j renders.  Vertex attribute
     storage is shared across instances (the base pool is concatenated once);
-    instances expand only the int32 maps — the TPU analog of
+    instances expand only the int32 maps — the analog of
     DrawIndexedInstanced(count, N, ...) with per-instance transforms coming from
     the SceneState arrays (position/orientation/scale/materials are per INSTANCE).
     """

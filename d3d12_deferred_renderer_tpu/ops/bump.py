@@ -8,25 +8,25 @@ are reconstructed per pixel from screen-space derivatives of the world position 
 the interpolated uv, and the height field is an analytic procedural pattern of uv —
 so the whole thing stays inside the single jitted frame program.
 
-Derivative domain: screen-space differences are taken within (cfg.tile_h,
-cfg.tile_w) blocks, clamped at block edges — exactly the data a per-tile Pallas
-kernel has in VMEM, so the fused mono-kernel (ops/fused.py) computes bit-equal
-bump normals without any cross-tile exchange.  This mirrors real GPU derivative
-semantics (HLSL ddx/ddy operate on 2x2 quads, not on arbitrary neighbors): the
-blocks are just bigger.  At block seams the forward difference is replaced by the
-previous column/row's difference (the same edge clamp the full-screen version
-applied at the image border).
-
-The planar core (``bump_planar``) is shared verbatim between the staged XLA path
-(``apply_normal_mapping``) and the fused kernel, so both compute the same thing.
+Derivative domain: screen-space differences are taken within BUMP_BLOCK
+(8 x 128) screen blocks, clamped at block edges, so a block needs no data
+from its neighbours (and bands of the multi-chip path aligned to the block
+height need no halo).  This mirrors real GPU derivative semantics (HLSL
+ddx/ddy operate on 2x2 quads, not on arbitrary neighbors): the blocks are just
+bigger.  At block seams the forward difference is replaced by the previous
+column/row's difference (the same edge clamp the full-screen version applied
+at the image border).  The block is part of the image's definition, not a
+kernel tile: changing it changes the images.
 """
 from __future__ import annotations
 
 import jax.lax as _lax
 import jax.numpy as jnp
 
-from ..config import RendererConfig
 from .raster_ref import FragmentPlanes
+
+# Screen-space derivative block (rows, columns): see the module docstring.
+BUMP_BLOCK = (8, 128)
 
 
 def _ddx_p(a):
@@ -43,15 +43,11 @@ def _ddy_p(a):
 def procedural_height_gradient(u: jnp.ndarray, v: jnp.ndarray, freq: float = 24.0):
     """Analytic dh/du, dh/dv of h(u,v) = sin(2*pi*f*u) * sin(2*pi*f*v) / (2*pi*f).
 
-    Planar (u, v) form so bump_planar calls it directly inside the Mosaic
-    kernel — the single definition of the procedural pattern.
-
     Evaluated via the product-to-sum identity — cos(a)sin(b) =
     (sin(b+a) + sin(b-a))/2, sin(a)cos(b) = (sin(b+a) - sin(b-a))/2 — so the
-    whole gradient costs TWO transcendentals per pixel instead of four
-    (transcendentals are the VPU's slowest ops; this body runs per covered
-    pixel inside the fused mono-kernel).  Values differ from the textbook form
-    only by rounding (~1 ULP), far inside every consumer's tolerance."""
+    whole gradient costs TWO transcendentals per pixel instead of four.
+    Values differ from the textbook form only by rounding (~1 ULP), far inside
+    every consumer's tolerance."""
     w = 2.0 * jnp.pi * freq
     s_sum = jnp.sin(w * (v + u))
     s_dif = jnp.sin(w * (v - u))
@@ -69,8 +65,7 @@ def bump_planar(world, uv, n, mid, strength: float, freq: float):
     (nx, ny, nz).  Pixels whose derivative taps cross meshes, hit background,
     or have a degenerate uv mapping keep their geometric normal.
 
-    Only elementwise jnp ops — runs identically as staged XLA over reshaped
-    blocks and inside the Mosaic-compiled fused kernel per tile.
+    Only elementwise jnp ops over the block axes.
     """
     wx, wy, wz = world
     u, v = uv
@@ -92,9 +87,7 @@ def bump_planar(world, uv, n, mid, strength: float, freq: float):
 
     dh_du, dh_dv = procedural_height_gradient(u, v, freq)
 
-    # rsqrt instead of sqrt-then-divide throughout: one VPU transcendental
-    # instead of two of the slowest ops, per pixel per normalize (this body
-    # runs per covered pixel inside the fused mono-kernel).  Values move ~1 ULP
+    # rsqrt instead of sqrt-then-divide throughout.  Values move ~1 ULP
     # (inside every consumer's tolerance; parity tests are tolerance-based).
     nlen2 = nx * nx + ny * ny + nz * nz
     inv_nlen = jnp.where(nlen2 == 0.0, 1.0, _lax.rsqrt(jnp.maximum(nlen2, 1e-38)))
@@ -120,7 +113,6 @@ def bump_planar(world, uv, n, mid, strength: float, freq: float):
     pert = tuple(c * inv_pn for c in pert)
 
     # Validity: same mesh under all derivative taps, nondegenerate uv mapping.
-    # Masks concatenate as f32, not bool — Mosaic cannot concatenate i1 vregs.
     # The edge pad REPLICATES the last comparison, exactly as _ddx_p/_ddy_p
     # replicate the last difference: the final column's derivative taps the
     # (w-2, w-1) pair, so its validity is that pair's comparison (padding ones
@@ -139,39 +131,18 @@ def bump_planar(world, uv, n, mid, strength: float, freq: float):
 def apply_normal_mapping(
     frags: FragmentPlanes,
     world_pos: jnp.ndarray,
-    cfg: RendererConfig,
     strength: float = 0.35,
     freq: float = 24.0,
-    view_proj: jnp.ndarray | None = None,
 ) -> FragmentPlanes:
     """Perturb fragment normals with the procedural height field.
 
     world_pos: [H, W, 3] reconstructed positions (reused from the lighting path).
-    Derivatives are block-local over (cfg.tile_h, cfg.tile_w) screen blocks (see
-    module docstring); out-of-image padding counts as background, so pixels on a
-    partial block's image edge keep their geometric normal, exactly like the
-    padded tiles the fused kernel rasterizes.
-
-    On TPU with ``view_proj`` given, the perturbation runs in a small Pallas
-    kernel sharing the fused mono-kernel's exact body (bump_planar + in-kernel
-    world reconstruction): Mosaic's transcendental implementations (the height
-    field's sin/cos) differ from XLA:TPU's, and a last-bit normal difference
-    shifts sharp GGX speculars by many u8 LSBs — same-body execution keeps the
-    staged and fused paths pixel-equal on chip, the established parity
-    mechanism (see lighting_pallas).
+    Derivatives are block-local over BUMP_BLOCK screen blocks (see module
+    docstring); out-of-image padding counts as background, so pixels on a
+    partial block's image edge keep their geometric normal.
     """
-    import jax
-
-    if (
-        view_proj is not None
-        and cfg.use_pallas
-        and jax.default_backend() == "tpu"
-    ):
-        return _apply_normal_mapping_pallas(
-            frags, cfg, strength, freq, view_proj
-        )
     H, W = frags.depth.shape
-    bh, bw = cfg.tile_h, cfg.tile_w
+    bh, bw = BUMP_BLOCK
     nby, nbx = -(-H // bh), -(-W // bw)
     Hp, Wp = nby * bh, nbx * bw
 
@@ -190,98 +161,4 @@ def apply_normal_mapping(
 
     out = bump_planar(world, uv, n, mid, strength, freq)
     new_normal = jnp.stack([unblocks(c) for c in out], axis=-1)
-    return frags._replace(normal=new_normal)
-
-
-def _bump_kernel(uniforms, planes_ref, out_ref, *, tile_h, tile_w,
-                 strength, freq):
-    """One (tile_h, tile_w) block: world from depth + bump_planar — the exact
-    per-sub-tile sequence the fused kernel runs."""
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl  # noqa: F401
-
-    from .fused import _world_from_depth, U_H, U_W
-    from .raster_pallas import _flat_pixels
-
-    tx = pl.program_id(1)
-    depth = planes_ref[0]
-    nx, ny, nz = planes_ref[1], planes_ref[2], planes_ref[3]
-    u, v = planes_ref[4], planes_ref[5]
-    mid = planes_ref[6]
-    pxf, pyf = _flat_pixels(jnp.int32(0), tile_h, tile_w, tx)
-    px = pxf.reshape(tile_h, tile_w)
-    py = pyf.reshape(tile_h, tile_w)
-    world = _world_from_depth(uniforms, px, py, depth)
-    mid_b = jnp.where((px < uniforms[U_W]) & (py < uniforms[U_H]), mid, -1.0)
-    nxo, nyo, nzo = bump_planar(
-        world, (u, v), (nx, ny, nz), mid_b, strength, freq
-    )
-    out_ref[0] = nxo
-    out_ref[1] = nyo
-    out_ref[2] = nzo
-
-
-def _apply_normal_mapping_pallas(
-    frags, cfg, strength, freq, view_proj, interpret=False
-):
-    """Staged-path bump through the fused kernel's Mosaic body (see
-    apply_normal_mapping docstring)."""
-    import jax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    import functools
-
-    from .fused import U_INV_VP, U_SIZE, U_H, U_W
-
-    H, W = frags.depth.shape
-    TH, TW = cfg.tile_h, cfg.tile_w
-    nty, ntx = -(-H // TH), -(-W // TW)
-    Hp, Wp = nty * TH, ntx * TW
-
-    def padp(a, fill):
-        return jnp.pad(
-            a, ((0, Hp - H), (0, Wp - W)), constant_values=fill
-        )
-
-    planes = jnp.stack([
-        padp(frags.depth, 1.0),
-        padp(frags.normal[..., 0], 0.0),
-        padp(frags.normal[..., 1], 0.0),
-        padp(frags.normal[..., 2], 0.0),
-        padp(frags.uv[..., 0], 0.0),
-        padp(frags.uv[..., 1], 0.0),
-        padp(frags.mesh_id.astype(jnp.float32), -1.0),
-    ])
-
-    uniforms = jnp.zeros((U_SIZE,), jnp.float32)
-    uniforms = uniforms.at[U_INV_VP : U_INV_VP + 16].set(
-        jnp.linalg.inv(view_proj).reshape(-1)
-    )
-    uniforms = uniforms.at[U_W].set(float(W))
-    uniforms = uniforms.at[U_H].set(float(H))
-
-    kernel = functools.partial(
-        _bump_kernel, tile_h=TH, tile_w=TW, strength=strength, freq=freq
-    )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(nty, ntx),
-        in_specs=[
-            pl.BlockSpec(
-                (7, TH, TW), lambda ty, tx, *_: (0, ty, tx),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (3, TH, TW), lambda ty, tx, *_: (0, ty, tx),
-            memory_space=pltpu.VMEM,
-        ),
-    )
-    out = pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((3, Hp, Wp), jnp.float32),
-        interpret=interpret,
-    )(uniforms, planes)
-    new_normal = out[:, :H, :W].transpose(1, 2, 0)
     return frags._replace(normal=new_normal)

@@ -50,34 +50,9 @@ def encode_gbuffer(
 
     n = normalize_safe(frags.normal)
 
-    import jax
-
-    if jax.default_backend() == "tpu":
-        # One-hot contraction over the (small) mesh axis instead of a
-        # per-pixel table gather: 2M-element gathers cost ~6 ms/frame on TPU.
-        M = materials.albedo.shape[0]
-        onehot = (mid[..., None] == jnp.arange(M)).astype(jnp.float32)
-        mat5 = jnp.concatenate(
-            [
-                materials.albedo,
-                materials.metalness[:, None],
-                materials.roughness[:, None],
-            ],
-            axis=-1,
-        )  # [M, 5]
-        # HIGHEST precision: default TPU matmul rounds the material constants
-        # through bf16 BEFORE quantization, flipping UNORM buckets vs the CPU
-        # gather path (one-hot selection is exact only at f32 accumulation —
-        # same reasoning as transform._fv_transform_cols).
-        sel = jnp.einsum(
-            "hwm,mc->hwc", onehot, mat5,
-            precision=jax.lax.Precision.HIGHEST,
-        )
-        albedo, metal, rough = sel[..., :3], sel[..., 3], sel[..., 4]
-    else:
-        albedo = materials.albedo[mid]        # [H, W, 3]
-        metal = materials.metalness[mid]      # [H, W]
-        rough = materials.roughness[mid]      # [H, W]
+    albedo = materials.albedo[mid]        # [H, W, 3]
+    metal = materials.metalness[mid]      # [H, W]
+    rough = materials.roughness[mid]      # [H, W]
 
     gb0 = jnp.concatenate([albedo, metal[..., None]], axis=-1)
     gb1 = jnp.concatenate([n * 0.5 + 0.5, rough[..., None]], axis=-1)

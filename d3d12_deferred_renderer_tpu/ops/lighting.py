@@ -32,6 +32,8 @@ from .gbuffer import GBuffer, decode_gbuffer
 
 from ..xmath import normalize_safe as _normalize  # shared zero-guarded normalize
 
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 def shade_lambert(gb: GBuffer, lights: Lights, cfg: RendererConfig) -> jnp.ndarray:
     """Reference lighting pass (lighting.hlsl:32-51) -> display-ready [H,W,3] in [0,1].
@@ -41,7 +43,9 @@ def shade_lambert(gb: GBuffer, lights: Lights, cfg: RendererConfig) -> jnp.ndarr
     G-buffer (to black), overwriting the cornflower clear."""
     d = decode_gbuffer(gb, cfg)
     L = _normalize(-lights.direction)
-    brightness = jnp.clip(jnp.einsum("hwc,c->hw", d.normal, L), 0.0, 1.0)
+    brightness = jnp.clip(
+        jnp.einsum("hwc,c->hw", d.normal, L, precision=_HIGHEST), 0.0, 1.0
+    )
     color = d.albedo * (cfg.ambient + lights.color * brightness[..., None])
     return jnp.power(jnp.maximum(color, 0.0), 1.0 / cfg.gamma)
 
@@ -64,24 +68,38 @@ def reconstruct_world_positions(
     xs = (jnp.arange(W, dtype=jnp.float32) + 0.5) * (2.0 / W) - 1.0
     ys = 1.0 - (y_offset + jnp.arange(H, dtype=jnp.float32) + 0.5) * (2.0 / FH)
     ndc_y, ndc_x = jnp.meshgrid(ys, xs, indexing="ij")
-    inv_vp = jnp.linalg.inv(view_proj)
-    ndc = jnp.stack([ndc_x, ndc_y, depth, jnp.ones_like(depth)], axis=-1)
-    world_h = jnp.einsum("hwi,ij->hwj", ndc, inv_vp)
-    return world_h[..., :3] / world_h[..., 3:4]
+    m = jnp.linalg.inv(view_proj)
+    # (ndc_x, ndc_y, depth, 1) @ inv_vp as an elementwise float32 sum in a
+    # fixed order (the Triton shading kernel evaluates the same expression):
+    # at depths near 1 the reconstruction cancels, so the order shows.
+    wh = [
+        ndc_x * m[0, j] + ndc_y * m[1, j] + depth * m[2, j] + m[3, j]
+        for j in range(4)
+    ]
+    return jnp.stack([wh[j] / wh[3] for j in range(3)], axis=-1)
 
 
 # ---------------------------------------------------------------------------
 # Cook-Torrance GGX
 # ---------------------------------------------------------------------------
 
-def _ggx_brdf(n, v, l, albedo, metalness, roughness):
-    """Cook-Torrance specular + energy-conserving Lambert diffuse.  All inputs
-    broadcast; returns radiance factor to be multiplied by light color * NdotL."""
-    h = _normalize(v + l)
-    ndl = jnp.maximum(jnp.sum(n * l, -1), 0.0)
-    ndv = jnp.maximum(jnp.sum(n * v, -1), 1e-4)
-    ndh = jnp.maximum(jnp.sum(n * h, -1), 0.0)
-    vdh = jnp.maximum(jnp.sum(v * h, -1), 0.0)
+def ggx_planar(n, v, l, albedo, metalness, roughness):
+    """Cook-Torrance specular + energy-conserving Lambert diffuse, times NdotL.
+
+    Channel-planar form: n, v, l and albedo are 3-tuples of same-shaped
+    arrays, metalness and roughness arrays of that shape; returns the 3-tuple
+    radiance factor to be multiplied by light color.  The single BRDF body of
+    the XLA shading paths and the Triton shading kernel (ops/lighting_pallas.py),
+    whose blocks have no small channel axis to reduce over."""
+
+    def dot(a, b):
+        return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
+
+    h = normalize3(tuple(v[i] + l[i] for i in range(3)))
+    ndl = jnp.maximum(dot(n, l), 0.0)
+    ndv = jnp.maximum(dot(n, v), 1e-4)
+    ndh = jnp.maximum(dot(n, h), 0.0)
+    vdh = jnp.maximum(dot(v, h), 0.0)
 
     alpha = jnp.maximum(roughness * roughness, 1e-3)
     a2 = alpha * alpha
@@ -91,15 +109,43 @@ def _ggx_brdf(n, v, l, albedo, metalness, roughness):
     k = (roughness + 1.0) ** 2 / 8.0
     g1 = ndv / (ndv * (1.0 - k) + k)
     g2 = ndl / (ndl * (1.0 - k) + k + 1e-7)
-    G = g1 * g2
+    DG = D * (g1 * g2)
+    fresnel = jnp.power(1.0 - vdh, 5.0)
+    spec_den = 4.0 * ndv * ndl + 1e-4
 
-    f0 = 0.04 * (1.0 - metalness[..., None]) + albedo * metalness[..., None]
-    F = f0 + (1.0 - f0) * jnp.power(1.0 - vdh, 5.0)[..., None]
+    out = []
+    for c in range(3):
+        f0 = 0.04 * (1.0 - metalness) + albedo[c] * metalness
+        F = f0 + (1.0 - f0) * fresnel
+        spec = DG * F / spec_den
+        diffuse = (1.0 - F) * (1.0 - metalness) * albedo[c] / jnp.pi
+        out.append((diffuse + spec) * ndl)
+    return tuple(out)
 
-    spec = (D * G)[..., None] * F / (4.0 * ndv * ndl + 1e-4)[..., None]
-    kd = (1.0 - F) * (1.0 - metalness[..., None])
-    diffuse = kd * albedo / jnp.pi
-    return (diffuse + spec) * ndl[..., None]
+
+def normalize3(v):
+    """normalize_safe over a planar 3-tuple (zero vectors pass unchanged)."""
+    n = jnp.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+    n = jnp.where(n == 0.0, 1.0, n)
+    return tuple(c / n for c in v)
+
+
+def _planes(a):
+    return tuple(a[..., i] for i in range(a.shape[-1]))
+
+
+def _ggx_brdf(n, v, l, albedo, metalness, roughness):
+    """ggx_planar over stacked [..., 3] vectors (broadcasting); returns the
+    stacked [..., 3] radiance factor."""
+    shape = jnp.broadcast_shapes(
+        n.shape, v.shape, l.shape, albedo.shape, metalness.shape + (3,)
+    )
+
+    def b(a):
+        return _planes(jnp.broadcast_to(a, shape))
+
+    out = ggx_planar(b(n), b(v), b(l), b(albedo), metalness, roughness)
+    return jnp.stack(out, axis=-1)
 
 
 def _point_light_attenuation(dist, radius, intensity):
@@ -226,7 +272,7 @@ def cull_lights_to_tiles(
         xg = jnp.broadcast_to(x[None, :], (ty, tx))
         yg = jnp.broadcast_to(y[:, None], (ty, tx))
         h = jnp.stack([xg, yg, z, jnp.ones_like(z)], -1)
-        w = jnp.einsum("yxi,ij->yxj", h, inv_vp)
+        w = jnp.einsum("yxi,ij->yxj", h, inv_vp, precision=_HIGHEST)
         return w[..., :3] / w[..., 3:4]
 
     def sphere_hits_slab(z0, z1, alive):
@@ -305,7 +351,7 @@ def shade_pbr_tiled(
     return_overflow: bool = False,
 ):
     """PBR shading with per-tile light culling (pure-XLA path; the Pallas lighting
-    kernel implements the same contraction fused in VMEM).  Exactly equals
+    kernel, ops/lighting_pallas.py, walks only the live lights).  Exactly equals
     shade_pbr WHEN no tile's live-light count exceeds cfg.max_lights_per_tile —
     overflowing tiles drop their excess lights.  Pass return_overflow=True to
     get (hdr, overflow) where overflow counts such tiles (frame.render threads
@@ -328,10 +374,11 @@ def shade_pbr_tiled(
         H, W = gb.depth.shape
         ty, tx = -(-H // tile), -(-W // tile)
         Hp, Wp = ty * tile, tx * tile
-        tl = cull_lights_to_tiles(
-            gb.depth, lights, cfg, view_proj, tile,
-            y_offset=y_offset, full_height=full_height,
-        )
+        with jax.named_scope("light_cull"):
+            tl = cull_lights_to_tiles(
+                gb.depth, lights, cfg, view_proj, tile,
+                y_offset=y_offset, full_height=full_height,
+            )
         overflow = tl.overflow
 
         def tiled(a):  # [H, W, C] -> [ty, tx, tile, tile, C] (zero-pad border)

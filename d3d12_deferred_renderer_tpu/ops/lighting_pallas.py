@@ -1,19 +1,17 @@
-"""Standalone Pallas deferred-lighting kernel over G-buffer planes.
+"""Tiled-deferred PBR shading as one Pallas-Triton program per light-cull tile.
 
-The staged pipeline's pure-XLA tiled shading (lighting.shade_pbr_tiled) scans
-every per-tile light SLOT — cost O(cap x pixels) regardless of live counts —
-~20x slower on chip than the Mosaic paths.  This kernel closes that gap for
-any STAGED config (the fused mono-kernel separately covers the full feature
-stack, including config 4 — see fused.render_fused): it consumes the ENCODED
-G-buffer planes (+ the optional shadow-visibility plane) from HBM, decodes
-them exactly like lighting.hlsl:34-40, and runs the SAME shading body as the
-fused kernel (fused._shade_row — world reconstruction, directional GGX x
-visibility, chunked-sublane point-light loop), emitting linear HDR so the XLA
-post chain (bloom -> tonemap -> gamma) runs unchanged.
+The XLA tiled shading (lighting.shade_pbr_tiled) walks every per-tile light
+SLOT over the whole frame under a liveness mask, so its cost is
+O(cap x pixels) whatever the live counts.  This kernel runs one program per
+(TILE x TILE) cull tile: it decodes the G-buffer in registers exactly like
+lighting.hlsl:34-40 (gbuffer.decode_gbuffer), reconstructs world positions
+from depth, adds the directional GGX term (times the optional shadow
+visibility) and then loops over ONLY that tile's live lights from
+cull_lights_to_tiles.  It writes linear HDR, so the XLA post chain
+(bloom -> tonemap -> gamma -> FXAA) runs unchanged.
 
-Staged configs on TPU therefore share one shading implementation with the
-fused path; the pure-XLA shade_pbr_tiled remains the CPU path and the
-semantics oracle the tests compare against.
+The BRDF is lighting.ggx_planar, the same body the XLA paths evaluate; the
+XLA shade_pbr_tiled stays the CPU path and the oracle the tests compare to.
 """
 from __future__ import annotations
 
@@ -22,65 +20,115 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..config import RendererConfig
 from ..scene import Lights
-from .fused import (
-    U_AMBIENT,
-    U_EYE,
-    U_H,
-    U_INV_VP,
-    U_LCOLOR,
-    U_LDIR,
-    U_SIZE,
-    U_W,
-    U_Y0,
-    _shade_row,
-    build_light_table,
-    pad_light_ids_to_chunk,
-)
+from ..xmath import normalize_safe
 from .gbuffer import GBuffer
-from .lighting import cull_lights_to_tiles
+from .lighting import (
+    _point_light_attenuation,
+    cull_lights_to_tiles,
+    ggx_planar,
+    normalize3,
+)
 
-# Input plane indices (leading dim of the stacked G-buffer array).
-_P_AR, _P_AG, _P_AB, _P_MET = 0, 1, 2, 3
-_P_NX, _P_NY, _P_NZ, _P_RGH = 4, 5, 6, 7
-_P_DEPTH, _P_VIS = 8, 9
+# Light-cull tile edge: one program shades one TILE x TILE block with that
+# tile's light list (the XLA path's default cull tile).
+TILE = 32
+SHADE_WARPS = 4
+
+# Uniform vector layout (f32).
+U_INV_VP = 0      # 16 floats, row-major, row-vector convention
+U_EYE = 16        # 3
+U_LDIR = 19       # 3 (normalized -lightDirection: toward the light)
+U_LCOLOR = 22     # 3
+U_AMBIENT = 25
+U_W = 26
+U_H = 27          # FULL frame height (bands map rows through U_Y0)
+U_Y0 = 28         # band row offset (0 for whole frames)
+U_SIZE = 32
 
 
-def _shade_kernel(
-    light_counts, uniforms, planes_ref, lights_ref, lids_ref, out_ref,
-    *, tile_h, tile_w, ntx, gamma, group, has_vis,
-):
+def _shade_kernel(u_ref, lights_ref, ids_ref, counts_ref, gb0_ref, gb1_ref,
+                  depth_ref, *rest, height, width, gamma, has_vis):
+    vis_ref, out_ref = rest if has_vis else (None, rest[0])
     ty = pl.program_id(0)
-    gx = pl.program_id(1)
+    tx = pl.program_id(1)
+    t = ty * pl.num_programs(1) + tx
+    shape = (TILE, TILE)
+    rows = ty * TILE + jax.lax.broadcasted_iota(jnp.int32, shape, 0)
+    cols = tx * TILE + jax.lax.broadcasted_iota(jnp.int32, shape, 1)
+    inside = (rows < height) & (cols < width)
+    blk = (pl.ds(ty * TILE, TILE), pl.ds(tx * TILE, TILE))
 
-    # Decode (lighting.hlsl:34-40): albedo sRGB -> linear via pow gamma,
-    # normal *2-1 then renormalize — identical to gbuffer.decode_gbuffer.
-    ar = planes_ref[_P_AR]
-    ag = planes_ref[_P_AG]
-    ab = planes_ref[_P_AB]
-    alb = jnp.stack([ar, ag, ab])
-    alb = jnp.power(jnp.maximum(alb, 0.0), gamma)
-    metal = planes_ref[_P_MET]
-    dx_ = planes_ref[_P_NX] * 2.0 - 1.0
-    dy_ = planes_ref[_P_NY] * 2.0 - 1.0
-    dz_ = planes_ref[_P_NZ] * 2.0 - 1.0
-    dlen = jnp.sqrt(dx_ * dx_ + dy_ * dy_ + dz_ * dz_)
-    inv_dlen = 1.0 / jnp.where(dlen == 0.0, 1.0, dlen)
-    n = jnp.stack([dx_ * inv_dlen, dy_ * inv_dlen, dz_ * inv_dlen])
-    rough = planes_ref[_P_RGH]
-    depth = planes_ref[_P_DEPTH]
-    vis = planes_ref[_P_VIS] if has_vis else None
+    def load(ref, *ch, other=0.0):
+        return plgpu.load(ref.at[blk + ch], mask=inside, other=other)
 
-    hdr = _shade_row(
-        uniforms, lights_ref, lids_ref, light_counts, ty, gx, group,
-        tile_h, tile_w, ntx, depth, n, alb, metal, rough, vis=vis,
+    def u(i):
+        return u_ref[i]
+
+    # G-buffer decode (gbuffer.decode_gbuffer).
+    alb = tuple(
+        jnp.power(jnp.maximum(load(gb0_ref, c), 0.0), gamma) for c in range(3)
     )
-    out_ref[0] = hdr[0]
-    out_ref[1] = hdr[1]
-    out_ref[2] = hdr[2]
+    metal = load(gb0_ref, 3)
+    n = normalize3(tuple(load(gb1_ref, c) * 2.0 - 1.0 for c in range(3)))
+    rough = load(gb1_ref, 3)
+    depth = load(depth_ref, other=1.0)
+
+    # World position (lighting.reconstruct_world_positions).
+    ndc_x = (cols.astype(jnp.float32) + 0.5) * (2.0 / u(U_W)) - 1.0
+    ndc_y = 1.0 - (
+        (u(U_Y0).astype(jnp.int32) + rows).astype(jnp.float32) + 0.5
+    ) * (2.0 / u(U_H))
+    wh = [
+        ndc_x * u(U_INV_VP + j) + ndc_y * u(U_INV_VP + 4 + j)
+        + depth * u(U_INV_VP + 8 + j) + u(U_INV_VP + 12 + j)
+        for j in range(4)
+    ]
+    world = tuple(wh[j] / wh[3] for j in range(3))
+    v = normalize3(tuple(u(U_EYE + j) - world[j] for j in range(3)))
+
+    ldir = tuple(jnp.full(shape, u(U_LDIR + j), jnp.float32) for j in range(3))
+    direct = ggx_planar(n, v, ldir, alb, metal, rough)
+    if has_vis:
+        vis = load(vis_ref, other=1.0)
+        direct = tuple(d * vis for d in direct)
+    radiance = tuple(direct[c] * u(U_LCOLOR + c) for c in range(3))
+
+    def light(k, acc):
+        lid = ids_ref[t, k]
+
+        def f(col):
+            return lights_ref[lid, col]
+
+        to_l = tuple(f(j) - world[j] for j in range(3))
+        dist = jnp.sqrt(to_l[0] * to_l[0] + to_l[1] * to_l[1] + to_l[2] * to_l[2])
+        dmax = jnp.maximum(dist, 1e-6)
+        l = tuple(c / dmax for c in to_l)
+        atten = _point_light_attenuation(dist, f(3), f(7))
+        brdf = ggx_planar(n, v, l, alb, metal, rough)
+        return tuple(acc[c] + brdf[c] * f(4 + c) * atten for c in range(3))
+
+    radiance = jax.lax.fori_loop(0, counts_ref[t], light, radiance)
+    covered = depth < 1.0
+    for c in range(3):
+        out = radiance[c] + u(U_AMBIENT) * alb[c]
+        plgpu.store(
+            out_ref.at[blk + (c,)], jnp.where(covered, out, 0.0), mask=inside
+        )
+
+
+def light_table(lights: Lights) -> jnp.ndarray:
+    """[max(L, 1), 8] point-light rows: pos.xyz, radius, color.rgb, intensity."""
+    t = jnp.zeros((max(lights.num_point, 1), 8), jnp.float32)
+    if lights.num_point:
+        t = t.at[:, 0:3].set(lights.point_position)
+        t = t.at[:, 3].set(lights.point_radius)
+        t = t.at[:, 4:7].set(lights.point_color)
+        t = t.at[:, 7].set(lights.point_intensity)
+    return t
 
 
 def shade_pbr_tiled_pallas(
@@ -96,117 +144,56 @@ def shade_pbr_tiled_pallas(
     full_height: int | None = None,
 ):
     """Tiled-deferred PBR shading -> linear HDR [H, W, 3] (same contract as
-    lighting.shade_pbr_tiled; per-tile light lists are exact and depth-aware,
-    capped at cfg.max_live_lights_per_tile with loud overflow).
+    lighting.shade_pbr_tiled: per-tile light lists capped at
+    cfg.max_lights_per_tile, overflowing tiles counted loudly).
 
     `y_offset`/`full_height` shade a horizontal band of a taller framebuffer
-    (the screen-sharded multi-chip path): pixel rows map to full-frame NDC via
-    the U_Y0 uniform, and light culling sees the same band offset — shading is
-    per-pixel exact for any band split (culling keeps every light whose sphere
-    intersects the tile AABB, and the falloff window is zero at the radius)."""
+    (the screen-sharded multi-chip path): rows map to full-frame NDC and the
+    light culling sees the same band offset."""
     H, W = gb.depth.shape
-    FH = full_height or H
-    TH, TW = cfg.tile_h, cfg.tile_w
-    nty, ntx = -(-H // TH), -(-W // TW)
-    Hp, Wp = nty * TH, ntx * TW
-    NT = nty * ntx
-
-    # Stack planar inputs; pad to whole tiles with background (depth 1.0).
-    planes = [
-        gb.gb0[..., 0], gb.gb0[..., 1], gb.gb0[..., 2], gb.gb0[..., 3],
-        gb.gb1[..., 0], gb.gb1[..., 1], gb.gb1[..., 2], gb.gb1[..., 3],
-        gb.depth,
-    ]
-    if shadow_visibility is not None:
-        planes.append(shadow_visibility)
-    planes = jnp.stack(planes)
-    if Hp != H:
-        pad = jnp.zeros((planes.shape[0], Hp - H, W), jnp.float32)
-        pad = pad.at[_P_DEPTH].set(1.0)
-        planes = jnp.concatenate([planes, pad], axis=1)
-    if Wp != W:
-        padw = jnp.zeros((planes.shape[0], Hp, Wp - W), jnp.float32)
-        padw = padw.at[_P_DEPTH].set(1.0)
-        planes = jnp.concatenate([planes, padw], axis=2)
-    NPL = planes.shape[0]
-
-    li = lights
-    L = max(li.num_point, 1)
-    light_table = build_light_table(li)
-    l_overflow = jnp.zeros((), jnp.int32)
-    if li.num_point:
-        tl = cull_lights_to_tiles(
-            gb.depth, li, cfg, view_proj, tile=(TH, TW),
-            max_per_tile=min(L, cfg.max_live_lights_per_tile),
-            y_offset=y_offset, full_height=full_height,
-        )
-        light_ids = tl.indices.reshape(NT, -1)
-        light_counts = tl.counts.reshape(NT)
-        l_overflow = tl.overflow
+    nty, ntx = -(-H // TILE), -(-W // TILE)
+    overflow = jnp.zeros((), jnp.int32)
+    if lights.num_point:
+        with jax.named_scope("light_cull"):
+            tl = cull_lights_to_tiles(
+                gb.depth, lights, cfg, view_proj, TILE,
+                y_offset=y_offset, full_height=full_height,
+            )
+        ids = tl.indices.reshape(nty * ntx, -1)
+        counts = tl.counts.reshape(-1)
+        overflow = tl.overflow
     else:
-        light_ids = jnp.zeros((NT, 1), jnp.int32)
-        light_counts = jnp.zeros((NT,), jnp.int32)
-    # CHUNK-multiple padding is load-bearing for memory safety — see
-    # fused.pad_light_ids_to_chunk (the single definition both kernels share).
-    light_ids = pad_light_ids_to_chunk(light_ids)
-    Lk = light_ids.shape[1]
+        ids = jnp.zeros((nty * ntx, 1), jnp.int32)
+        counts = jnp.zeros((nty * ntx,), jnp.int32)
 
-    from ..xmath import normalize_safe
+    uni = jnp.zeros((U_SIZE,), jnp.float32)
+    uni = uni.at[U_INV_VP : U_INV_VP + 16].set(jnp.linalg.inv(view_proj).reshape(-1))
+    uni = uni.at[U_EYE : U_EYE + 3].set(eye)
+    uni = uni.at[U_LDIR : U_LDIR + 3].set(normalize_safe(-lights.direction))
+    uni = uni.at[U_LCOLOR : U_LCOLOR + 3].set(lights.color)
+    uni = uni.at[U_AMBIENT].set(cfg.ambient)
+    uni = uni.at[U_W].set(float(W))
+    uni = uni.at[U_H].set(float(full_height or H))
+    uni = uni.at[U_Y0].set(jnp.asarray(y_offset, jnp.float32))
 
-    ldir = normalize_safe(-li.direction)  # same guard as every other path
-    uniforms = jnp.zeros((U_SIZE,), jnp.float32)
-    uniforms = uniforms.at[U_INV_VP : U_INV_VP + 16].set(
-        jnp.linalg.inv(view_proj).reshape(-1)
-    )
-    uniforms = uniforms.at[U_EYE : U_EYE + 3].set(eye)
-    uniforms = uniforms.at[U_LDIR : U_LDIR + 3].set(ldir)
-    uniforms = uniforms.at[U_LCOLOR : U_LCOLOR + 3].set(li.color)
-    uniforms = uniforms.at[U_AMBIENT].set(cfg.ambient)
-    uniforms = uniforms.at[U_W].set(float(W))
-    uniforms = uniforms.at[U_H].set(float(FH))
-    uniforms = uniforms.at[U_Y0].set(jnp.asarray(y_offset, jnp.float32))
-
-    # Group size: plane blocks are small, so usually a whole tile row per step.
-    G = ntx
-    while G > 1 and (
-        (NPL + 3) * TH * G * TW * 4 * 2 > (6 << 20) or ntx % G
-    ):
-        G -= 1
-    ngx = ntx // G
-
+    args = [uni, light_table(lights), ids, counts, gb.gb0, gb.gb1, gb.depth]
+    if shadow_visibility is not None:
+        args.append(shadow_visibility)
     kernel = functools.partial(
-        _shade_kernel, tile_h=TH, tile_w=TW, ntx=ntx, gamma=cfg.gamma,
-        group=G, has_vis=shadow_visibility is not None,
+        _shade_kernel, height=H, width=W, gamma=cfg.gamma,
+        has_vis=shadow_visibility is not None,
     )
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(nty, ngx),
-        in_specs=[
-            pl.BlockSpec(
-                (NPL, TH, G * TW), lambda ty, gx, *_: (0, ty, gx),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(memory_space=pltpu.VMEM),  # light table (whole)
-            pl.BlockSpec(                            # per-step light-id lists
-                (1, Lk, G), lambda ty, gx, *_, _g=ngx: (ty * _g + gx, 0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (3, TH, G * TW), lambda ty, gx, *_: (0, ty, gx),
-            memory_space=pltpu.VMEM,
-        ),
-    )
-    out = pl.pallas_call(
+    hdr = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((3, Hp, Wp), jnp.float32),
+        grid=(nty, ntx),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * len(args),
+        out_specs=pl.BlockSpec(memory_space=pl.ANY),
+        out_shape=jax.ShapeDtypeStruct((H, W, 3), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=SHADE_WARPS),
         interpret=interpret,
-    )(
-        light_counts, uniforms, planes, light_table,
-        light_ids.reshape(nty * ngx, G, Lk).transpose(0, 2, 1),
-    )
-    hdr = out[:, :H, :W].transpose(1, 2, 0)
+        name="shade_pbr",
+    )(*args)
     if return_overflow:
-        return hdr, l_overflow
+        return hdr, overflow
     return hdr

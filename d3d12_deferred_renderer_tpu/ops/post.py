@@ -35,9 +35,8 @@ def _gaussian_kernel1d(sigma: float, radius: int) -> jnp.ndarray:
 
 def _blur_separable(img: jnp.ndarray, sigma: float, radius: int) -> jnp.ndarray:
     """Separable gaussian blur on [H, W, C] via weighted shifted-slice
-    accumulation.  A (2r+1)-tap 1-channel conv lowers poorly on the TPU (the
-    implicit-matmul path wastes the MXU at channel count 1 — measured ~0.8 ms
-    slower at bloom resolutions); 2x17 padded slices + FMAs are pure VPU."""
+    accumulation (2 x (2r+1) padded slices and multiply-adds, which XLA
+    fuses into elementwise passes)."""
     k = _gaussian_kernel1d(sigma, radius)
     H, W, _ = img.shape
     taps = 2 * radius + 1
@@ -70,45 +69,6 @@ def bloom(hdr: jnp.ndarray, threshold: float, strength: float,
     ds = bright[::downsample, ::downsample]
     blurred = _blur_separable(ds, sigma, radius)
     up = jnp.repeat(jnp.repeat(blurred, downsample, 0), downsample, 1)[:H, :W]
-    return hdr + strength * up
-
-
-def _blur_separable_chw(img: jnp.ndarray, sigma: float, radius: int) -> jnp.ndarray:
-    """Channel-first [C, H, W] twin of _blur_separable: SAME taps in the SAME
-    accumulation order (bit-equal values, verified on-chip by tools/ab_bloom.py
-    — max |delta| 0.0), with W in the TPU lane dimension instead of the 3-wide
-    channel axis (which pads 3 lanes of 128 on every shifted slice)."""
-    k = _gaussian_kernel1d(sigma, radius)
-    _, H, W = img.shape
-    taps = 2 * radius + 1
-    x = jnp.pad(img, ((0, 0), (radius, radius), (0, 0)), mode="edge")
-    acc = None
-    for i in range(taps):
-        t = x[:, i : i + H] * k[i]
-        acc = t if acc is None else acc + t
-    x = jnp.pad(acc, ((0, 0), (0, 0), (radius, radius)), mode="edge")
-    acc = None
-    for i in range(taps):
-        t = x[:, :, i : i + W] * k[i]
-        acc = t if acc is None else acc + t
-    return acc
-
-
-def bloom_chw(hdr: jnp.ndarray, threshold: float, strength: float,
-              sigma: float = BLOOM_SIGMA, radius: int = BLOOM_RADIUS,
-              downsample: int = BLOOM_DOWNSAMPLE) -> jnp.ndarray:
-    """Channel-first [3, H, W] twin of bloom(): value-identical (transposes and
-    the order-preserving _blur_separable_chw are exact — verified on-chip and
-    on CPU, max |delta| 0.0).  Used by the fused path, whose kernel emits
-    channel-first planes.  NOTE the layout is NOT the bloom cost: on-chip the
-    blur is nearly free (radius=0 measured within 0.05 ms of the full chain)
-    and the time sits in the full-res threshold/upsample/add traffic in either
-    layout (tools/ab_bloom.py, 2026-08-20)."""
-    _, H, W = hdr.shape
-    bright = jnp.maximum(hdr - threshold, 0.0)
-    ds = bright[:, ::downsample, ::downsample]
-    blurred = _blur_separable_chw(ds, sigma, radius)
-    up = jnp.repeat(jnp.repeat(blurred, downsample, 1), downsample, 2)[:, :H, :W]
     return hdr + strength * up
 
 

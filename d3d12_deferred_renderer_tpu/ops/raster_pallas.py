@@ -1,7 +1,7 @@
-"""Pallas tile-binned rasterizer — the TPU-native geometry pass.
+"""Tile-binned rasterizer: XLA binning + one Pallas-Triton program per tile.
 
-Replaces the D3D12 hardware rasterizer + ROPs with a software design shaped for
-the TPU memory hierarchy (SURVEY.md §7 hard parts 1-2):
+Replaces the D3D12 hardware rasterizer + ROPs with a software design in the
+spirit of binned CUDA rasterizers (CuRast, PAPERS.md):
 
 1. **Binning (XLA)**: one record sort by (footprint tier, submission index)
    compacts live triangles into per-tier prefixes (dead records — backface
@@ -11,21 +11,17 @@ the TPU memory hierarchy (SURVEY.md §7 hard parts 1-2):
    packed into one int32 key and sorted — key order is (tile, submission)
    order, D3D's depth-LESS "first-equal wins" requirement.  The sorted pair
    prefix IS the output: one row gather builds a compacted RECORD STREAM whose
-   per-tile segments sit back-to-back (no dense [tiles, K] layout — ~97%
-   padding at realistic occupancy).  Small scenes use the O(tiles*T)
+   per-tile segments sit back-to-back.  Small scenes use the O(tiles*T)
    overlap-matrix + top_k path, which doubles as the tested oracle for the
    sort path.
 
-2. **Raster kernels (Pallas)**: grid over tile ROWS (a VMEM-budgeted group of
-   adjacent tiles per step).  Each step manually DMAs its contiguous stream
-   span into scratch (fixed-size copy ladder), then rasterizes per sub-tile
-   with triangles CHUNK-at-a-time as VPU sublanes against the tile's pixels
-   flat in lanes (_chunk_raster): every per-triangle coefficient is a
-   (CHUNK, 1) lane slice — zero scalar VMEM extracts.  The z-buffer race that
-   GPU ROPs resolve in hardware becomes an exact per-chunk winner resolution
-   (masked sublane min, first-slot tie-break, one-hot select with a -0.0
-   fill), bit-identical in interpret mode to the reference rasterizer
-   (raster_ref.py), which the tests assert.
+2. **Raster kernel (Pallas through Triton)**: one program per screen tile.  It
+   walks its tile's segment ``stream[offs[t] : offs[t] + counts[t]]`` in
+   submission order with the tile's depth / normal / uv / mesh-id planes held
+   in registers; the strict ``z < depth`` test keeps depth-LESS first-wins
+   exactly as raster_ref defines it (bit-identical in interpret mode, which
+   the tests assert).  A depth-only variant serves the shadow map, the
+   light-culling prepass and calibration.
 
 The per-pixel rules (pixel-center sampling, top-left fill, depth clip,
 perspective-correct attributes) are shared with raster_ref via the same packed
@@ -39,7 +35,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..config import RendererConfig
 from .raster_ref import FragmentPlanes
@@ -61,93 +57,31 @@ from .transform import (
     TRI_Z0,
     TRI_Z1,
     TRI_Z2,
-    TRI_STRIDE,
 )
-
-# Output plane indices (leading dim of the [8, H, W] kernel output).
-PLANE_DEPTH, PLANE_NX, PLANE_NY, PLANE_NZ = 0, 1, 2, 3
-PLANE_U, PLANE_V, PLANE_MID, PLANE_PAD = 4, 5, 6, 7
-NUM_PLANES = 8
-
-
-def _pad_lanes(packed: jnp.ndarray) -> jnp.ndarray:
-    """Pad record rows to exactly 128 floats (one full lane tile) so VMEM
-    blocks built from them are contiguous linear DMAs (a stride<128 row pads
-    per-row in VMEM, degenerating the DMA to per-row strided copies)."""
-    S = packed.shape[-1]
-    lanes = -(-S // 128) * 128
-    if lanes != S:
-        packed = jnp.pad(packed, ((0, 0), (0, lanes - S)))
-    return packed
 
 
 class BinnedTriangles(NamedTuple):
     idx: jnp.ndarray      # [NT, K] int32 per-tile triangle ids, or None (stream-only)
     counts: jnp.ndarray   # [NT, 1] int32 — triangles binned to each tile (clamped to K)
     overflow: jnp.ndarray  # [] int32 — tiles whose true count exceeded K (dropped tris)
-    # Compacted record stream: per-tile segments laid out back-to-back (in the
-    # sort path, row i IS sorted pair i — zero re-layout) — the kernels DMA
-    # exactly each grid step's segment span instead of a dense (tiles x K)
-    # block that is ~97% padding.
-    stream: jnp.ndarray | None = None   # [cap + slack, 128] f32
+    # Compacted record stream: tile t's records are rows
+    # [offs[t], offs[t] + counts[t]) in submission order.
+    stream: jnp.ndarray | None = None   # [rows, TRI_STRIDE] f32
     offs: jnp.ndarray | None = None     # [NT + 1] int32 segment offsets
 
-    def with_stream(
-        self, packed: jnp.ndarray, cap: int, slack: int
-    ) -> "BinnedTriangles":
-        """Build the compacted record stream from the dense idx (fallback for
-        the flat binning path — the sort path builds the stream directly from
-        its sorted pair list with a single row gather; see bin_triangles).
-
-        `cap` bounds the total (exceeding it clamps tail tiles' counts and
-        raises `overflow` — loud, never silent).  `slack` extra garbage rows
-        let the kernel's fixed-size copy ladder read past the end safely."""
+    def with_stream(self, packed: jnp.ndarray) -> "BinnedTriangles":
+        """Record stream from the dense idx (the flat binning path): tile t's
+        segment is its K-slot row of idx, so offs[t] = t * K."""
         NT, K = self.idx.shape
-        counts = self.counts[:, 0]
-        offs_raw = jnp.concatenate(
-            [jnp.zeros((1,), jnp.int32), jnp.cumsum(counts).astype(jnp.int32)]
-        )
-        offs = jnp.minimum(offs_raw, cap)
-        scounts = jnp.minimum(counts, offs[1:] - offs[:-1])
-
-        # Row j of the stream belongs to the LAST tile whose segment starts at
-        # or before j: t[j] = |{t' : offs[t'] <= j}| - 1.  (searchsorted lowers
-        # to a per-element binary-search loop on TPU — ~10 ms at 65k rows; the
-        # fused [cap, NT] comparison-sum is a pure VPU contraction.)
-        j = jnp.arange(cap, dtype=jnp.int32)
-        t = jnp.sum((j[:, None] >= offs[None, :-1]).astype(jnp.int32), axis=1) - 1
-        t = jnp.clip(t, 0, NT - 1)
-        local = j - offs[t]
-        live = local < scounts[t]
-        flat = t * K + jnp.minimum(local, K - 1)
-        src = jnp.where(live, self.idx.reshape(-1)[flat], 0)
-        stream = _pad_lanes(packed[src])
-        stream = jnp.pad(stream, ((0, slack), (0, 0)))
-        overflow = self.overflow + (offs_raw[NT] > cap).astype(jnp.int32)
-        return self._replace(
-            stream=stream, offs=offs, counts=scounts[:, None], overflow=overflow
-        )
+        offs = jnp.arange(NT + 1, dtype=jnp.int32) * K
+        return self._replace(stream=packed[self.idx.reshape(-1)], offs=offs)
 
 
 # bin_triangles uses the flat [tiles, T] overlap matrix + per-tile top_k only for
-# small scenes (the top_k's measured device cost scales with NT*T: 183 ms at
-# 2025x48k on v5e).  Above FLAT_CELLS it switches to sort-based binning: emit
-# (tile, triangle) pairs, one lexicographic device sort groups them per tile in
-# submission order (a raw 3M-key sort measures ~4 ms on the same chip).
+# small scenes (its cost scales with NT*T).  Above FLAT_CELLS it switches to
+# sort-based binning: emit (tile, triangle) pairs and let one device sort group
+# them per tile in submission order.
 FLAT_CELLS = 1_000_000
-
-# Triangles are rasterized CHUNK at a time as VPU sublanes (see _chunk_raster).
-CHUNK = 16
-
-
-def _pad_slots(idx: jnp.ndarray, K: int) -> jnp.ndarray:
-    """Pad the per-tile slot axis to a CHUNK multiple so the kernels can always
-    load full (CHUNK, stride) record blocks; padding slots point at triangle 0
-    and are masked off by the slot<count test."""
-    K8 = -(-K // CHUNK) * CHUNK
-    if K8 == K:
-        return idx
-    return jnp.pad(idx, ((0, 0), (0, K8 - K)))
 
 
 def _overlap_matrix(aabb, valid, y0s, x0s, span_h, span_w):
@@ -184,11 +118,12 @@ def bin_triangles_flat(
     # top_k keeps ties in index order => triangles stay in submission order,
     # preserving depth-LESS first-wins semantics.
     _, idx = jax.lax.top_k(overlap.astype(jnp.float32), K)
-    idx = _pad_slots(idx.astype(jnp.int32), K)
     true_counts = jnp.sum(overlap, axis=-1)
     counts = jnp.minimum(true_counts, K).astype(jnp.int32)
     overflow = jnp.sum(true_counts > K).astype(jnp.int32)
-    return BinnedTriangles(idx=idx, counts=counts[:, None], overflow=overflow)
+    return BinnedTriangles(
+        idx=idx.astype(jnp.int32), counts=counts[:, None], overflow=overflow
+    )
 
 
 def bin_triangles(
@@ -224,7 +159,7 @@ def bin_triangles(
          dense [NT, K] id layout, or — with `stream_src` — the compacted record
          STREAM: one row gather of `stream_src` rows by the sorted pair prefix
          (row i of the stream is sorted pair i, segment offsets = the bounds),
-         skipping the dense 2*NT*K-element id gather entirely.
+         skipping the dense NT*K-element id gather entirely.
 
     Overflow counts tiles whose triangle list exceeded K, plus any big triangles
     beyond the bin_max_big budget (each would silently drop coverage), plus a
@@ -244,9 +179,7 @@ def bin_triangles(
     if T * NT <= FLAT_CELLS:
         binned = bin_triangles_flat(packed, aabb, valid, cfg, band_h, y_offset)
         if stream_src is not None:
-            binned = binned.with_stream(
-                stream_src, cfg.bin_stream_cap, STREAM_SLACK
-            )
+            binned = binned.with_stream(stream_src)
         return binned
 
     # Tier budgets scale with the FULL framebuffer area (base: 1080p): at 4K a
@@ -438,514 +371,158 @@ def bin_triangles(
         cap = min(cfg.bin_stream_cap * area_scale, P)
         offs = jnp.minimum(bounds, cap)
         scounts = jnp.minimum(counts, offs[1:] - offs[:-1])
-        # Gather the 32-column records, THEN pad rows to the 128-lane kernel
-        # layout: the random row gather is bytes-bound (~10 ns per 512 B row),
-        # so gathering unpadded rows moves 4x fewer bytes and the lane pad
-        # becomes one dense copy.
-        stream = _pad_lanes(stream_src[tris_sorted[:cap]])
-        stream = jnp.pad(stream, ((0, STREAM_SLACK), (0, 0)))
         overflow = overflow + (bounds[NT] > cap).astype(jnp.int32)
         return BinnedTriangles(
             idx=None, counts=scounts[:, None], overflow=overflow,
-            stream=stream, offs=offs,
+            stream=stream_src[tris_sorted[:cap]], offs=offs,
         )
 
     gidx = jnp.clip(bounds[:-1, None] + jnp.arange(K, dtype=jnp.int32)[None, :], 0, P - 1)
     idx = tris_sorted[gidx]  # [NT, K]; slots beyond counts are padding
-    return BinnedTriangles(
-        idx=_pad_slots(idx, K), counts=counts[:, None], overflow=overflow
+    return BinnedTriangles(idx=idx, counts=counts[:, None], overflow=overflow)
+
+
+# Perspective-correct attribute channels of the full rasterizer: (first record
+# column, column step between the three vertices).  Normal xyz, then uv.
+_ATTR_CHANNELS = (
+    (TRI_N0, 3), (TRI_N0 + 1, 3), (TRI_N0 + 2, 3),
+    (TRI_UV0, 2), (TRI_UV0 + 1, 2),
+)
+
+# Warps per raster program: a 1024-pixel tile keeps 7 planes in registers.
+RASTER_WARPS = 4
+
+
+def _raster_kernel(offs_ref, counts_ref, yoff_ref, stream_ref, *out_refs,
+                   tile_h, tile_w, ntx, attrs):
+    """One screen tile: walk its record segment in submission order.
+
+    The per-triangle arithmetic is raster_ref.rasterize_packed's, expression
+    for expression, so interpret mode is bit-identical to the oracle; record
+    fields are scalar loads (uniform across the program, served from cache)."""
+    ty = pl.program_id(0)
+    tx = pl.program_id(1)
+    t = ty * ntx + tx
+    start = offs_ref[t]
+    n = counts_ref[t]
+    shape = (tile_h, tile_w)
+    py = (
+        (yoff_ref[0] + ty * tile_h).astype(jnp.float32) + 0.5
+        + jax.lax.broadcasted_iota(jnp.int32, shape, 0).astype(jnp.float32)
+    )
+    px = (
+        (tx * tile_w).astype(jnp.float32) + 0.5
+        + jax.lax.broadcasted_iota(jnp.int32, shape, 1).astype(jnp.float32)
     )
 
-
-def _flat_pixels(yoff, tile_h, tile_w, txi):
-    """Pixel-center coordinates for tile column `txi` of this grid row,
-    flattened row-major to (1, tile_h * tile_w): pixels live purely in VPU
-    lanes so per-triangle coefficients broadcast as (CHUNK, 1) x (1, P) — the
-    row-scaling pattern Mosaic lowers to native lane broadcasts, with zero
-    scalar extracts."""
-    ty = pl.program_id(0)
-    P = tile_h * tile_w
-    y0 = (yoff + ty * tile_h).astype(jnp.float32)
-    x0 = jnp.float32(txi * tile_w)
-    fi = jax.lax.broadcasted_iota(jnp.int32, (1, P), 1).astype(jnp.float32)
-    # Row/col from the flat index in f32 (exact: fi < 2^20 and the quotient's
-    # distance to the next integer exceeds f32 rounding error at these
-    # magnitudes) — integer div/mod lowers far worse on the VPU.
-    row = jnp.floor(fi * (1.0 / tile_w))
-    py = y0 + 0.5 + row
-    px = x0 + 0.5 + (fi - row * tile_w)
-    return px, py
-
-
-def _chunk_raster(fetch_chunk, n, px, py, channels):
-    """Rasterize `n` binned triangles CHUNK at a time with triangles in VPU
-    sublanes and pixels in lanes.
-
-    The sequential z-test loop (one triangle per iteration, ~15 scalar VMEM
-    extracts each — measured ~480 cycles of scalar floor per triangle) becomes:
-    load a (CHUNK, stride) record block, evaluate all edge functions / depths as
-    (CHUNK, P) tensors, then resolve the chunk's winner per pixel exactly:
-
-      * depth-LESS first-wins: mask ineligible z to 2.0, min over sublanes, and
-        break ties toward the LOWEST slot (submission order) via a masked
-        index-min — identical semantics to the sequential loop.
-      * the stored depth/attributes are the winner's own values, selected by
-        one-hot sum with a -0.0 fill (x + (-0.0) == x bitwise for every float,
-        including NaN), so outputs stay BIT-identical to raster_ref.
-
-    `channels` is a list of specs: ("interp", offset, stride3_step, init) for
-    perspective-correct attributes, ("const", column, init) for per-triangle
-    constants.  Returns (depth, ch0, ch1, ...) each shaped (1, P) — the caller
-    reshapes to the 2D tile once.
-    """
-    P = px.shape[1]
-    slot = jax.lax.broadcasted_iota(jnp.int32, (CHUNK, 1), 0).astype(jnp.float32)
-
-    def body(c, carry):
+    def body(i, carry):
         depth = carry[0]
-        t = fetch_chunk(c)  # (CHUNK, stride)
 
-        def col(F):
-            return t[:, F : F + 1]  # (CHUNK, 1) lane slice
-
-        x0v, y0v = col(TRI_X0), col(TRI_Y0)
-        x1v, y1v = col(TRI_X1), col(TRI_Y1)
-        x2v, y2v = col(TRI_X2), col(TRI_Y2)
+        def f(col):
+            return stream_ref[i, col]
 
         def edge(ax, ay, bx, by):
-            # e(p) = cross2d(b - a, p - a); top-left tie bias (see raster_ref).
-            A = ay - by
-            B = bx - ax
-            C = ax * by - bx * ay
-            e = A * px + B * py + C  # (CHUNK, P)
+            # e(p) = cross2d(b - a, p - a); top-left tie rule (raster_ref).
+            e = (ay - by) * px + (bx - ax) * py + (ax * by - bx * ay)
             dx = bx - ax
             dy = by - ay
             tl = ((dy == 0.0) & (dx > 0.0)) | (dy < 0.0)
             return (e > 0.0) | ((e == 0.0) & tl), e
 
-        c0, e0 = edge(x1v, y1v, x2v, y2v)
-        c1, e1 = edge(x2v, y2v, x0v, y0v)
-        c2, e2 = edge(x0v, y0v, x1v, y1v)
-        covered = c0 & c1 & c2
-
-        inv_area = 1.0 / col(TRI_AREA)
+        x0, y0 = f(TRI_X0), f(TRI_Y0)
+        x1, y1 = f(TRI_X1), f(TRI_Y1)
+        x2, y2 = f(TRI_X2), f(TRI_Y2)
+        c0, e0 = edge(x1, y1, x2, y2)
+        c1, e1 = edge(x2, y2, x0, y0)
+        c2, e2 = edge(x0, y0, x1, y1)
+        inv_area = 1.0 / f(TRI_AREA)
         b0 = e0 * inv_area
         b1 = e1 * inv_area
         b2 = e2 * inv_area
-        z = b0 * col(TRI_Z0) + b1 * col(TRI_Z1) + b2 * col(TRI_Z2)
-
-        # In-bounds slot + valid record (padding chunks mask off entirely).
-        ok = (col(TRI_VALID) > 0.0) & (slot + (c * CHUNK) < n)
-        elig = covered & ok & (z >= 0.0) & (z <= 1.0)
-        zm = jnp.where(elig, z, 2.0)  # NaN z fails the range test -> masked
-        zmin = jnp.min(zm, axis=0, keepdims=True)  # (1, P)
-
-        # First eligible triangle attaining zmin wins (submission order).
-        cand = jnp.where(zm == zmin, slot, 1e9)
-        win = jnp.min(cand, axis=0, keepdims=True)
-        onehot = slot == win  # (CHUNK, P)
-
-        def select(attr):
-            # Winner's exact bits: x + (-0.0) == x for all x (incl. NaN).
-            return jnp.sum(jnp.where(onehot, attr, -0.0), axis=0, keepdims=True)
-
-        zsel = select(zm)
-        passes = zmin < depth  # strict: an equal-z later chunk loses
-        out = [jnp.where(passes, zsel, depth)]
-        if len(carry) > 1:
-            rw = b0 * col(TRI_RW0) + b1 * col(TRI_RW1) + b2 * col(TRI_RW2)
+        z = b0 * f(TRI_Z0) + b1 * f(TRI_Z1) + b2 * f(TRI_Z2)
+        passes = (
+            c0 & c1 & c2 & (f(TRI_VALID) > 0.0)
+            & (z < depth) & (z >= 0.0) & (z <= 1.0)
+        )
+        out = [jnp.where(passes, z, depth)]
+        if attrs:
+            rw = b0 * f(TRI_RW0) + b1 * f(TRI_RW1) + b2 * f(TRI_RW2)
             inv_rw = 1.0 / jnp.where(rw == 0.0, 1.0, rw)
-            for spec, old in zip(channels, carry[1:]):
-                if spec[0] == "interp":
-                    _, o, step, _ = spec
-                    attr = (
-                        b0 * col(o) + b1 * col(o + step) + b2 * col(o + 2 * step)
-                    ) * inv_rw
-                else:
-                    _, o, _ = spec
-                    attr = col(o)  # (CHUNK, 1), broadcasts inside select
-                out.append(jnp.where(passes, select(attr), old))
+            for (col, step), old in zip(_ATTR_CHANNELS, carry[1:-1]):
+                a = (b0 * f(col) + b1 * f(col + step) + b2 * f(col + 2 * step))
+                out.append(jnp.where(passes, a * inv_rw, old))
+            mid = f(TRI_MESH_ID).astype(jnp.int32)
+            out.append(jnp.where(passes, mid, carry[-1]))
         return tuple(out)
 
-    init = (jnp.ones((1, P), jnp.float32),) + tuple(
-        jnp.full((1, P), spec[-1], jnp.float32) for spec in channels
+    init = [jnp.ones(shape, jnp.float32)]
+    if attrs:
+        init += [jnp.zeros(shape, jnp.float32) for _ in _ATTR_CHANNELS]
+        init.append(jnp.full(shape, -1, jnp.int32))
+    planes = jax.lax.fori_loop(start, start + n, body, tuple(init))
+    for ref, plane in zip(out_refs, planes):
+        ref[...] = plane
+
+
+def _run_raster_kernel(binned, cfg, band_h, y_offset, attrs, interpret):
+    """Launch _raster_kernel over the (band of the) tile grid -> planes
+    [Hp, Wp] each (depth, then with `attrs` nx ny nz u v mesh_id)."""
+    H = band_h or cfg.height
+    TH, TW = cfg.tile_h, cfg.tile_w
+    nty, ntx = -(-H // TH), -(-cfg.width // TW)
+    plane = jax.ShapeDtypeStruct((nty * TH, ntx * TW), jnp.float32)
+    out_shape = [plane]
+    if attrs:
+        out_shape += [plane] * len(_ATTR_CHANNELS)
+        out_shape.append(jax.ShapeDtypeStruct(plane.shape, jnp.int32))
+    spec = pl.BlockSpec((TH, TW), lambda i, j: (i, j))
+    whole = pl.BlockSpec(memory_space=pl.ANY)
+    yoff = jnp.asarray(y_offset, jnp.int32).reshape(1)
+    kernel = functools.partial(
+        _raster_kernel, tile_h=TH, tile_w=TW, ntx=ntx, attrs=attrs
     )
-    nchunks = (n + CHUNK - 1) // CHUNK
-    return jax.lax.fori_loop(0, nchunks, body, init)
+    return pl.pallas_call(
+        kernel,
+        grid=(nty, ntx),
+        in_specs=[whole] * 4,
+        out_specs=[spec] * len(out_shape),
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=RASTER_WARPS),
+        interpret=interpret,
+        name="raster_depth" if not attrs else "raster",
+    )(binned.offs, binned.counts[:, 0], yoff, binned.stream)
 
 
-def _records_fetch(tris_ref, g):
-    """Chunk fetch from sub-tile `g` of a (G, K, stride) record row-block."""
-
-    def fetch(c):
-        return tris_ref[g, pl.ds(c * CHUNK, CHUNK), :]
-
-    return fetch
-
-
-def _indirect_fetch(idx_ref, packed_ref, g):
-    """Chunk fetch via sub-tile `g`'s triangle ids ((G, K, 1) block — dynamic
-    SUBLANE indexing; Mosaic cannot scalar-load a dynamic lane) into the
-    VMEM-resident packed array: CHUNK dynamic row loads assembled into one
-    (CHUNK, stride) block."""
-
-    def fetch(c):
-        rows = [
-            packed_ref[pl.ds(idx_ref[g, c * CHUNK + i, 0], 1), :]
-            for i in range(CHUNK)
-        ]
-        return jnp.concatenate(rows, axis=0)
-
-    return fetch
-
-
-# Manual segment DMA for the compacted record stream: rows per fixed-size copy
-# in the ladder, and the stream slack rows kernels may harmlessly over-read.
-STREAM_COPY_ROWS = 512
-STREAM_SLACK = 16384
-
-
-def _pick_group_stream(ntx: int, K: int) -> int:
-    """Largest divisor of ntx whose per-step scratch segment fits ~4 MB."""
-    budget = 4 << 20
-    g = ntx
-    while g > 1 and (g * K * 512 > budget or ntx % g):
-        g -= 1
-    return g
-
-
-def _stream_fetch(scratch, local_off):
-    """Chunk fetch from the step's VMEM scratch copy of the record stream;
-    `local_off` is this sub-tile's CHUNK-aligned offset within the segment."""
-
-    def fetch(c):
-        return scratch[pl.ds(local_off + c * CHUNK, CHUNK), :]
-
-    return fetch
-
-
-def _copy_group_segment(offs_ref, stream_ref, scratch, sem, tile0, group, max_rows):
-    """DMA this grid step's contiguous stream span [offs[tile0], offs[tile0+G])
-    into scratch.  Fixed-size copy ladder (DMA sizes must be static): issues
-    ceil(total / STREAM_COPY_ROWS) copies, so a typical step (avg ~70 live
-    rows) moves one 256 KB block instead of the dense G*K*512B block — and,
-    frame-wide, ~stream-cap rows instead of tiles*K (~25x less DMA).
-    Returns the span's start row."""
-    start = offs_ref[tile0]
-    total = offs_ref[tile0 + group] - start
-    ncopies = -(-max_rows // STREAM_COPY_ROWS)
-    copies = [
-        pltpu.make_async_copy(
-            stream_ref.at[
-                pl.ds(start + i * STREAM_COPY_ROWS, STREAM_COPY_ROWS), :
-            ],
-            scratch.at[pl.ds(i * STREAM_COPY_ROWS, STREAM_COPY_ROWS), :],
-            sem,
+def _bin_stream(packed, aabb, cfg, band_h, y_offset):
+    with jax.named_scope("binning"):
+        valid = packed[:, TRI_VALID] > 0.0
+        return bin_triangles(
+            packed, aabb, valid, cfg, band_h=band_h, y_offset=y_offset,
+            stream_src=packed,
         )
-        for i in range(ncopies)
-    ]
-    for i, cp in enumerate(copies):
-
-        @pl.when(i * STREAM_COPY_ROWS < total)
-        def _(cp=cp):
-            cp.start()
-
-    for i, cp in enumerate(copies):
-
-        @pl.when(i * STREAM_COPY_ROWS < total)
-        def _(cp=cp):
-            cp.wait()
-
-    return start
-
-
-def _copy_group_segment_db(offs_ref, stream_ref, scratch, sems, ntx, group,
-                           max_rows):
-    """Double-buffered variant of _copy_group_segment: each grid step PREFETCHES
-    the NEXT step's stream segment into the other half of `scratch` and only
-    then waits for its own half (started by the previous step), so the segment
-    DMA crosses HBM underneath the previous step's raster/shade body instead of
-    stalling every step on its own copy ladder.
-
-    `scratch` holds TWO max_rows slots ([2 * nladder, 128]); `sems` is a (2,)
-    DMA-semaphore array — one per slot, so the prefetch completing early can
-    never satisfy the current step's wait.  Grid steps execute sequentially
-    ("arbitrary" dims), so slot i%2 is free for reuse by step i+2's prefetch by
-    the time step i+1 issues it.  Returns (segment start row, slot row offset);
-    fetches read scratch at slot_offset + local."""
-    ngx = pl.num_programs(1)
-    nsteps = pl.num_programs(0) * ngx
-    i = pl.program_id(0) * ngx + pl.program_id(1)
-    slot = jax.lax.rem(i, 2)
-    nladder = scratch.shape[0] // 2
-    ncopies = -(-max_rows // STREAM_COPY_ROWS)
-
-    def ladder(step, slot_idx, phase):
-        t0 = (step // ngx) * ntx + jax.lax.rem(step, ngx) * group
-        s0 = offs_ref[t0]
-        total = offs_ref[t0 + group] - s0
-        row0 = slot_idx * nladder
-        for c in range(ncopies):
-            cp = pltpu.make_async_copy(
-                stream_ref.at[
-                    pl.ds(s0 + c * STREAM_COPY_ROWS, STREAM_COPY_ROWS), :
-                ],
-                scratch.at[
-                    pl.ds(row0 + c * STREAM_COPY_ROWS, STREAM_COPY_ROWS), :
-                ],
-                sems.at[slot_idx],
-            )
-
-            @pl.when(c * STREAM_COPY_ROWS < total)
-            def _(cp=cp):
-                if phase == "start":
-                    cp.start()
-                else:
-                    cp.wait()
-
-    @pl.when(i == 0)
-    def _():
-        ladder(i, slot, "start")
-
-    @pl.when(i + 1 < nsteps)
-    def _():
-        ladder(i + 1, 1 - slot, "start")
-
-    ladder(i, slot, "wait")
-    tile0 = pl.program_id(0) * ntx + pl.program_id(1) * group
-    return offs_ref[tile0], slot * nladder
-
-
-# Channel specs for the staged full rasterizer (FragmentPlanes contract).
-_RASTER_CHANNELS = (
-    ("interp", TRI_N0, 3, 0.0),
-    ("interp", TRI_N0 + 1, 3, 0.0),
-    ("interp", TRI_N0 + 2, 3, 0.0),
-    ("interp", TRI_UV0, 2, 0.0),
-    ("interp", TRI_UV0 + 1, 2, 0.0),
-    ("const", TRI_MESH_ID, -1.0),  # -1 = background
-)
-
-
-def _raster_kernel_stream(
-    counts_ref, yoff_ref, offs_ref, stream_ref, out_ref, scratch, sem,
-    *, tile_h, tile_w, ntx, group, max_rows, local_clamp, db=False
-):
-    """Full rasterization of a group row -> the 8 fragment planes, reading the
-    compacted record stream via a manual segment DMA (see _copy_group_segment)."""
-    ty = pl.program_id(0)
-    gx = pl.program_id(1)
-    tile0 = ty * ntx + gx * group
-    if db:
-        start, soff = _copy_group_segment_db(
-            offs_ref, stream_ref, scratch, sem, ntx, group, max_rows
-        )
-    else:
-        start = _copy_group_segment(
-            offs_ref, stream_ref, scratch, sem, tile0, group, max_rows
-        )
-        soff = 0
-    yoff = yoff_ref[0]
-    shape = (tile_h, tile_w)
-    for g in range(group):
-        txi = gx * group + g
-        px, py = _flat_pixels(yoff, tile_h, tile_w, txi)
-        local = jnp.minimum(offs_ref[tile0 + g] - start, local_clamp)
-        depth, nx, ny, nz, uu, vv, mid = _chunk_raster(
-            _stream_fetch(scratch, soff + local),
-            counts_ref[tile0 + g], px, py, _RASTER_CHANNELS,
-        )
-        sl = slice(g * tile_w, (g + 1) * tile_w)
-        out_ref[PLANE_DEPTH, :, sl] = depth.reshape(shape)
-        out_ref[PLANE_NX, :, sl] = nx.reshape(shape)
-        out_ref[PLANE_NY, :, sl] = ny.reshape(shape)
-        out_ref[PLANE_NZ, :, sl] = nz.reshape(shape)
-        out_ref[PLANE_U, :, sl] = uu.reshape(shape)
-        out_ref[PLANE_V, :, sl] = vv.reshape(shape)
-        out_ref[PLANE_MID, :, sl] = mid.reshape(shape)
-        out_ref[PLANE_PAD, :, sl] = jnp.zeros(shape, jnp.float32)
-
-
-def _raster_kernel_indirect(
-    counts_ref, yoff_ref, idx_ref, packed_ref, out_ref,
-    *, tile_h, tile_w, ntx, group
-):
-    """Indirect variant: the whole packed triangle array stays resident in VMEM
-    and tiles fetch rows by id — no per-tile record gather traffic.  Used when
-    the packed array fits the VMEM budget (small/medium scenes)."""
-    ty = pl.program_id(0)
-    gx = pl.program_id(1)
-    yoff = yoff_ref[0]
-    shape = (tile_h, tile_w)
-    for g in range(group):
-        txi = gx * group + g
-        tile = ty * ntx + txi
-        px, py = _flat_pixels(yoff, tile_h, tile_w, txi)
-        depth, nx, ny, nz, uu, vv, mid = _chunk_raster(
-            _indirect_fetch(idx_ref, packed_ref, g), counts_ref[tile], px, py,
-            _RASTER_CHANNELS,
-        )
-        sl = slice(g * tile_w, (g + 1) * tile_w)
-        out_ref[PLANE_DEPTH, :, sl] = depth.reshape(shape)
-        out_ref[PLANE_NX, :, sl] = nx.reshape(shape)
-        out_ref[PLANE_NY, :, sl] = ny.reshape(shape)
-        out_ref[PLANE_NZ, :, sl] = nz.reshape(shape)
-        out_ref[PLANE_U, :, sl] = uu.reshape(shape)
-        out_ref[PLANE_V, :, sl] = vv.reshape(shape)
-        out_ref[PLANE_MID, :, sl] = mid.reshape(shape)
-        out_ref[PLANE_PAD, :, sl] = jnp.zeros(shape, jnp.float32)
-
-
-def _depth_kernel_stream(
-    counts_ref, yoff_ref, offs_ref, stream_ref, out_ref, scratch, sem,
-    *, tile_h, tile_w, ntx, group, max_rows, local_clamp, db=False
-):
-    """Depth-only rasterization of a group row: _chunk_raster with no attribute
-    channels — used for the light-culling depth prepass and the shadow-map pass
-    (both consume depth alone).  BIT-identical depth to the full rasterizer's."""
-    ty = pl.program_id(0)
-    gx = pl.program_id(1)
-    tile0 = ty * ntx + gx * group
-    if db:
-        start, soff = _copy_group_segment_db(
-            offs_ref, stream_ref, scratch, sem, ntx, group, max_rows
-        )
-    else:
-        start = _copy_group_segment(
-            offs_ref, stream_ref, scratch, sem, tile0, group, max_rows
-        )
-        soff = 0
-    yoff = yoff_ref[0]
-    for g in range(group):
-        txi = gx * group + g
-        # The clamp keeps scratch reads in bounds when earlier tiles' TRUE
-        # pair counts exceeded K (the loud-overflow regime renders garbage for
-        # the affected tiles but never reads out of bounds).
-        local = jnp.minimum(offs_ref[tile0 + g] - start, local_clamp)
-        (depth,) = _chunk_raster(
-            _stream_fetch(scratch, soff + local),
-            counts_ref[tile0 + g],
-            *_flat_pixels(yoff, tile_h, tile_w, txi), (),
-        )
-        out_ref[:, g * tile_w : (g + 1) * tile_w] = depth.reshape(tile_h, tile_w)
-
-
-def _depth_kernel_indirect(
-    counts_ref, yoff_ref, idx_ref, packed_ref, out_ref,
-    *, tile_h, tile_w, ntx, group
-):
-    ty = pl.program_id(0)
-    gx = pl.program_id(1)
-    yoff = yoff_ref[0]
-    for g in range(group):
-        txi = gx * group + g
-        px, py = _flat_pixels(yoff, tile_h, tile_w, txi)
-        (depth,) = _chunk_raster(
-            _indirect_fetch(idx_ref, packed_ref, g), counts_ref[ty * ntx + txi],
-            px, py, (),
-        )
-        out_ref[:, g * tile_w : (g + 1) * tile_w] = depth.reshape(tile_h, tile_w)
 
 
 def rasterize_depth(
     packed: jnp.ndarray,
     aabb: jnp.ndarray,
     cfg: RendererConfig,
-    binned: BinnedTriangles | None = None,
     interpret: bool = False,
-    band_h: int | None = None,
-    y_offset=0,
     return_overflow: bool = False,
 ) -> jnp.ndarray:
-    """Depth-only tile-binned rasterization -> depth [H, W] float32 (cleared 1.0).
+    """Depth-only tile-binned rasterization of the whole cfg.height x
+    cfg.width target -> depth [H, W] float32 (cleared 1.0).
 
-    Exactly the depth plane rasterize_binned would produce, at ~the z-test cost
-    alone.  Used as the light-culling prepass (exact tile depth bounds for
-    cull_lights_to_tiles) and for shadow maps.  Pass `binned` to reuse an
-    existing binning.  The framebuffer size comes from cfg (shadow maps pass a
-    cfg with width=height=S — binning hardcodes cfg.width, so a separate
-    width override here could silently disagree with the binned tile grid).
-    With return_overflow=True returns (depth, overflow): the binning's
-    dropped-triangle tile count (the no-silent-drop contract)."""
-    H = band_h or cfg.height
-    W = cfg.width
-    TH, TW = cfg.tile_h, cfg.tile_w
-    nty, ntx = -(-H // TH), -(-W // TW)
-    Hp, Wp = nty * TH, ntx * TW
-
-    T = packed.shape[0]
-    if binned is None:
-        valid = packed[:, TRI_VALID] > 0.0
-        binned = bin_triangles(
-            packed, aabb, valid, cfg, band_h=band_h or H, y_offset=y_offset,
-            stream_src=packed if T > VMEM_INDIRECTION_SLOTS else None,
-        )
-    K = -(-min(cfg.max_tris_per_tile, T) // CHUNK) * CHUNK
-    yoff = jnp.asarray(y_offset, jnp.int32).reshape(1)
-    out_shape = jax.ShapeDtypeStruct((Hp, Wp), jnp.float32)
-
-    if T <= VMEM_INDIRECTION_SLOTS:
-        K = binned.idx.shape[1]
-        kernel = functools.partial(
-            _depth_kernel_indirect, tile_h=TH, tile_w=TW, ntx=ntx, group=1
-        )
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(nty, ntx),
-            in_specs=[
-                pl.BlockSpec(
-                    (1, K, 1), lambda ty, tx, *_: (ty * ntx + tx, 0, 0),
-                    memory_space=pltpu.VMEM,
-                ),
-                pl.BlockSpec(memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (TH, TW), lambda ty, tx, *_: (ty, tx), memory_space=pltpu.VMEM
-            ),
-        )
-        out = pl.pallas_call(
-            kernel, grid_spec=grid_spec, out_shape=out_shape, interpret=interpret,
-        )(binned.counts[:, 0], yoff, binned.idx[..., None], packed)
-    else:
-        if binned.stream is None:
-            binned = binned.with_stream(packed, cfg.bin_stream_cap, STREAM_SLACK)
-        G = _pick_group_stream(ntx, K)
-        max_rows = G * K
-        assert max_rows <= STREAM_SLACK, "stream slack must cover a group span"
-        nladder = -(-max_rows // STREAM_COPY_ROWS) * STREAM_COPY_ROWS
-        db = cfg.stream_dma_db
-        kernel = functools.partial(
-            _depth_kernel_stream, tile_h=TH, tile_w=TW, ntx=ntx, group=G,
-            max_rows=max_rows, local_clamp=nladder - K, db=db,
-        )
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(nty, ntx // G),
-            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-            out_specs=pl.BlockSpec(
-                (TH, G * TW), lambda ty, gx, *_: (ty, gx),
-                memory_space=pltpu.VMEM,
-            ),
-            scratch_shapes=[
-                pltpu.VMEM(((2 if db else 1) * nladder, 128), jnp.float32),
-                pltpu.SemaphoreType.DMA((2,)) if db else pltpu.SemaphoreType.DMA,
-            ],
-        )
-        out = pl.pallas_call(
-            kernel, grid_spec=grid_spec, out_shape=out_shape, interpret=interpret,
-        )(binned.counts[:, 0], yoff, binned.offs, binned.stream)
-
+    Exactly the depth plane rasterize_binned would produce, at ~the z-test
+    cost alone: the shadow map (a cfg with width = height = map size) and
+    calibration use it.  With return_overflow=True returns (depth, overflow):
+    the binning's dropped-triangle tile count (the no-silent-drop contract)."""
+    binned = _bin_stream(packed, aabb, cfg, None, 0)
+    (depth,) = _run_raster_kernel(binned, cfg, None, 0, False, interpret)
+    depth = depth[: cfg.height, : cfg.width]
     if return_overflow:
-        return out[:H, :W], binned.overflow
-    return out[:H, :W]
-
-
-# Packed arrays at most this many slots keep the whole triangle buffer resident in
-# VMEM.  NOTE the VMEM cost is slots * 128 lanes * 4 bytes — the (8, 128) tile
-# layout pads the 32-lane records to 128 — so 8k slots is ~4.2 MB of the ~16 MB
-# budget.  Larger scenes stream pre-gathered per-tile records instead (measured
-# equal step time; the indirect path only saves HBM gather traffic).
-VMEM_INDIRECTION_SLOTS = 8192
+        return depth, binned.overflow
+    return depth
 
 
 def rasterize_binned(
@@ -957,7 +534,7 @@ def rasterize_binned(
     y_offset=0,
     return_overflow: bool = False,
 ):
-    """Tile-binned Pallas rasterization -> FragmentPlanes (same contract as
+    """Tile-binned rasterization -> FragmentPlanes (same contract as
     raster_ref.rasterize_packed).
 
     With `band_h`/`y_offset`, rasterizes only rows [y_offset, y_offset + band_h)
@@ -968,76 +545,16 @@ def rasterize_binned(
     threads this to the runtime overflow warning)."""
     H = band_h or cfg.height
     W = cfg.width
-    TH, TW = cfg.tile_h, cfg.tile_w
-    nty, ntx = -(-H // TH), -(-W // TW)
-    Hp, Wp = nty * TH, ntx * TW
-
-    T = packed.shape[0]
-    valid = packed[:, TRI_VALID] > 0.0
-    binned = bin_triangles(
-        packed, aabb, valid, cfg, band_h=band_h, y_offset=y_offset,
-        stream_src=packed if T > VMEM_INDIRECTION_SLOTS else None,
+    binned = _bin_stream(packed, aabb, cfg, band_h, y_offset)
+    depth, nx, ny, nz, u, v, mid = (
+        p[:H, :W]
+        for p in _run_raster_kernel(binned, cfg, band_h, y_offset, True, interpret)
     )
-    K = -(-min(cfg.max_tris_per_tile, T) // CHUNK) * CHUNK
-    yoff = jnp.asarray(y_offset, jnp.int32).reshape(1)
-    out_shape = jax.ShapeDtypeStruct((NUM_PLANES, Hp, Wp), jnp.float32)
-
-    if T <= VMEM_INDIRECTION_SLOTS:
-        K = binned.idx.shape[1]
-        kernel = functools.partial(
-            _raster_kernel_indirect, tile_h=TH, tile_w=TW, ntx=ntx, group=1
-        )
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(nty, ntx),
-            in_specs=[
-                pl.BlockSpec(
-                    (1, K, 1), lambda ty, tx, *_: (ty * ntx + tx, 0, 0),
-                    memory_space=pltpu.VMEM,
-                ),
-                pl.BlockSpec(memory_space=pltpu.VMEM),  # whole packed array
-            ],
-            out_specs=pl.BlockSpec(
-                (NUM_PLANES, TH, TW), lambda ty, tx, *_: (0, ty, tx),
-                memory_space=pltpu.VMEM,
-            ),
-        )
-        out = pl.pallas_call(
-            kernel, grid_spec=grid_spec, out_shape=out_shape, interpret=interpret,
-        )(binned.counts[:, 0], yoff, binned.idx[..., None], packed)
-    else:
-        G = _pick_group_stream(ntx, K)
-        max_rows = G * K
-        assert max_rows <= STREAM_SLACK, "stream slack must cover a group span"
-        nladder = -(-max_rows // STREAM_COPY_ROWS) * STREAM_COPY_ROWS
-        db = cfg.stream_dma_db
-        kernel = functools.partial(
-            _raster_kernel_stream, tile_h=TH, tile_w=TW, ntx=ntx, group=G,
-            max_rows=max_rows, local_clamp=nladder - K, db=db,
-        )
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3,
-            grid=(nty, ntx // G),
-            in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-            out_specs=pl.BlockSpec(
-                (NUM_PLANES, TH, G * TW), lambda ty, gx, *_: (0, ty, gx),
-                memory_space=pltpu.VMEM,
-            ),
-            scratch_shapes=[
-                pltpu.VMEM(((2 if db else 1) * nladder, 128), jnp.float32),
-                pltpu.SemaphoreType.DMA((2,)) if db else pltpu.SemaphoreType.DMA,
-            ],
-        )
-        out = pl.pallas_call(
-            kernel, grid_spec=grid_spec, out_shape=out_shape, interpret=interpret,
-        )(binned.counts[:, 0], yoff, binned.offs, binned.stream)
-
-    out = out[:, :H, :W]
     frags = FragmentPlanes(
-        depth=out[PLANE_DEPTH],
-        normal=jnp.stack([out[PLANE_NX], out[PLANE_NY], out[PLANE_NZ]], axis=-1),
-        uv=jnp.stack([out[PLANE_U], out[PLANE_V]], axis=-1),
-        mesh_id=out[PLANE_MID].astype(jnp.int32),
+        depth=depth,
+        normal=jnp.stack([nx, ny, nz], axis=-1),
+        uv=jnp.stack([u, v], axis=-1),
+        mesh_id=mid,
     )
     if return_overflow:
         return frags, binned.overflow

@@ -130,15 +130,25 @@ def rasterize_packed(
 
         rw = b0 * tri[TRI_RW0] + b1 * tri[TRI_RW1] + b2 * tri[TRI_RW2]
         inv_rw = 1.0 / jnp.where(rw == 0.0, 1.0, rw)
-        bb = jnp.stack([b0, b1, b2], axis=-1)  # [H, W, 3]
-        n_w = jnp.stack(
-            [tri[TRI_N0 : TRI_N0 + 3], tri[TRI_N1 : TRI_N1 + 3], tri[TRI_N2 : TRI_N2 + 3]]
-        )  # [3 verts, 3]
-        uv_w = jnp.stack(
-            [tri[TRI_UV0 : TRI_UV0 + 2], tri[TRI_UV1 : TRI_UV1 + 2], tri[TRI_UV2 : TRI_UV2 + 2]]
-        )  # [3 verts, 2]
-        normal = (bb @ n_w) * inv_rw[..., None]  # [H, W, 3]
-        uv = (bb @ uv_w) * inv_rw[..., None]     # [H, W, 2]
+
+        def interp(v0, v1, v2):
+            # Elementwise float32 sum, not a matrix product: no TF32 rounding
+            # on GPUs, and the same expression the tile kernel evaluates.
+            a = (
+                b0[..., None] * tri[v0]
+                + b1[..., None] * tri[v1]
+                + b2[..., None] * tri[v2]
+            )
+            return a * inv_rw[..., None]
+
+        normal = interp(  # [H, W, 3]
+            slice(TRI_N0, TRI_N0 + 3), slice(TRI_N1, TRI_N1 + 3),
+            slice(TRI_N2, TRI_N2 + 3),
+        )
+        uv = interp(  # [H, W, 2]
+            slice(TRI_UV0, TRI_UV0 + 2), slice(TRI_UV1, TRI_UV1 + 2),
+            slice(TRI_UV2, TRI_UV2 + 2),
+        )
 
         new = FragmentPlanes(
             depth=jnp.where(passes, z, state.depth),

@@ -56,11 +56,8 @@ def pack_cmp_quads(tex: jnp.ndarray) -> jnp.ndarray:
     Returns [(Ht+1)*(Wt+1), 8] where row (y0+1)*(Wt+1)+(x0+1) holds the 2x2
     CLAMP-addressed footprint (c00, c10, c01, c11) at integer base (x0, y0),
     x0 in [-1, Wt-1], padded to 8 lanes (zeros in 4..7).  Edge replication
-    reproduces per-tap CLAMP exactly.  TPU gathers cost ~constant per indexed
-    row for narrow rows, so one row-gather of the packed table replaces four
-    element-gathers (measured 4-6x faster at shadow-map resolutions,
-    tools/ubench_gather.py); 8-wide rows gather ~20% faster than 4-wide on
-    this chip (32-byte rows hit the sweet spot of the gather engine)."""
+    reproduces per-tap CLAMP exactly.  One row-gather of the packed table
+    replaces four element-gathers (32-byte rows)."""
     p = jnp.pad(tex, ((1, 1), (1, 1)), mode="edge")
     z = jnp.zeros_like(p[:-1, :-1])
     quads = jnp.stack(
@@ -103,8 +100,8 @@ def sample_bilinear_cmp(
     with the same texel addressing/weights as sample_bilinear.
 
     All four footprint taps come from ONE row-gather of the quad-packed map
-    (pack_cmp_quads) — bit-identical to four clamped element-gathers, ~4-6x
-    faster on TPU.  When sampling the same map many times, pre-pack once and
+    (pack_cmp_quads) — bit-identical to four clamped element-gathers.  When
+    sampling the same map many times, pre-pack once and
     pass packed= (e.g. per frame); tex is still required for the shape.
 
     tex [Ht, Wt]; uv [..., 2] in [0,1]; ref [...] -> visibility [...] in [0,1].

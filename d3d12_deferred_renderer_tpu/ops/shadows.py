@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from .. import xmath
 from ..config import RendererConfig
 from ..scene import SceneState
-from .raster_ref import rasterize_packed
+from . import dispatch
 from .transform import triangle_setup
 
 
@@ -49,12 +49,13 @@ def light_view_proj(
     )
     view = xmath.look_at_lh(eye, center, up)
     proj = orthographic_lh(extent, extent, 0.1, distance * 2.0)
-    return view @ proj
+    return jnp.matmul(view, proj, precision=jax.lax.Precision.HIGHEST)
 
 
 def shadow_bin_config(cfg: RendererConfig, n_tris: int) -> RendererConfig:
     """The binning/raster config the shadow-map pass runs under (width/height
-    = map size; light-view tier budgets; 16-row tiles on lane-aligned maps).
+    = map size; light-view tier budgets; the display's raster tile, which
+    measured fastest of the safe shapes for the depth kernel, PERF.md).
 
     With cfg.shadow_bin_tiers set (calibrate.autotune_shadow), the calibrated
     light-view tiers apply — sized from the scene's measured light-view
@@ -88,49 +89,30 @@ def shadow_bin_config(cfg: RendererConfig, n_tris: int) -> RendererConfig:
             bin_max_large=max(64, cfg.bin_max_large),
             bin_max_big=max(16, cfg.bin_max_big),
         )
-    if S % 128 == 0:
-        shadow_cfg = dataclasses.replace(shadow_cfg, tile_h=16, tile_w=128)
     return shadow_cfg
 
 
 def setup_light_view_triangles(
     state: SceneState, cfg: RendererConfig, shadow_cfg: RendererConfig,
-    lvp: jnp.ndarray, setup_interpret: bool = False,
+    lvp: jnp.ndarray,
 ):
     """Triangle setup in the LIGHT's view (cull="none": both faces occlude;
     depth-only — attribute lanes are zero-filled).  Shared by
-    render_shadow_map, calibrate.autotune_shadow, and the calibration tests.
-
-    Setup-kernel gate mirrors setup_frame_triangles': the flag means the
-    same thing for every pass (`setup_interpret` lets CPU tests drive this
-    exact call site through the interpret-mode kernel)."""
+    render_shadow_map, calibrate.autotune_shadow, and the calibration tests."""
     geo = state.geometry
     model = xmath.model_matrix(state.position, state.orientation, state.scale)
-    use_setup_kernel = (
-        cfg.setup_pallas
-        and geo.fv_pos_cols is not None
-        and (setup_interpret or jax.default_backend() == "tpu")
-    )
-    if geo.fv_positions is not None and use_setup_kernel:
-        from .setup_pallas import setup_triangles_pallas
-
-        # Fused depth-only setup kernel (attrs=False zero-fills the attribute
-        # record lanes, matching _setup_cols' depth-only contract).
-        return setup_triangles_pallas(
-            geo, model @ lvp, model, shadow_cfg, cull="none", attrs=False,
-            interpret=setup_interpret,
-        )
+    mvp = jnp.matmul(model, lvp, precision=jax.lax.Precision.HIGHEST)
     if geo.fv_positions is not None:
         from .transform import _fv_transform_cols, _setup_cols
 
         # Depth-only setup (attrs=None): the shadow map never reads normals or
         # uvs, and skipping their transform/clip/pack halves the column ops.
-        c_cols, _, _ = _fv_transform_cols(geo, model @ lvp, model, attrs=False)
+        c_cols, _, _ = _fv_transform_cols(geo, mvp, model, attrs=False)
         return _setup_cols(
             c_cols, None, None, geo.tri_mesh_id, shadow_cfg, cull="none"
         )
     vm = geo.vertex_mesh_id
-    clip = xmath.transform_points(geo.logical_positions(), (model @ lvp)[vm])
+    clip = xmath.transform_points(geo.logical_positions(), mvp[vm])
     return triangle_setup(
         clip, geo.logical_normals(), geo.logical_uvs(), geo.indices,
         geo.tri_mesh_id, shadow_cfg, cull="none",
@@ -139,53 +121,31 @@ def setup_light_view_triangles(
 
 def render_shadow_map(
     state: SceneState, cfg: RendererConfig, return_overflow: bool = False,
-    setup_interpret: bool = False,
+    interpret: bool = False,
 ):
     """Depth-only pass from the light's view.  Returns (depth [S,S], light_vp),
     plus the binning overflow count with ``return_overflow=True`` (a shadow
     tile exceeding the per-tile triangle cap would silently drop occluders —
     the same no-silent-drop contract as the main pass).
 
-    Uses the binned Pallas depth kernel on TPU (the same fast path as the
-    light-culling prepass — bit-identical depth semantics) on 16-row tiles
-    (square maps measured ~10% faster than the display pass's 8-row tiles);
-    the pure-XLA oracle rasterizer elsewhere.  A 1024^2 map over a
-    24k-triangle scene is ~25G edge tests on the oracle's O(T*S^2) path
-    (round-1 verdict weak spot #3)."""
+    Runs the same depth raster as the light-culling prepass
+    (ops/dispatch.rasterize_depth): the binned depth kernel on the light's
+    tile grid (shadow_bin_config), or the oracle rasterizer."""
     S = cfg.shadow_map_size
     lvp = light_view_proj(state.lights.direction)
-    on_tpu = cfg.use_pallas and jax.default_backend() == "tpu"
-
-    geo = state.geometry
-    shadow_cfg = dataclasses.replace(cfg, width=S, height=S)
-    if on_tpu:
-        # The light's ortho view concentrates the whole scene into few tiles
-        # (the display cap was silently inadequate here until the overflow
-        # counter was threaded through — the benchmark scene needs ~4x even at
-        # the display tile size).  8x the display cap measures overflow-free
-        # with margin REGARDLESS of map size; the record stream sizes by
-        # ACTUAL binned pairs, so an oversized cap costs nothing when tiles
-        # don't fill it.  16-row tiles are a separate, size-gated tweak
-        # (measured ~10% faster on lane-aligned square maps).  Tier budget
-        # rationale lives in shadow_bin_config.
-        shadow_cfg = shadow_bin_config(cfg, geo.tri_mesh_id.shape[0])
-    tris = setup_light_view_triangles(
-        state, cfg, shadow_cfg, lvp, setup_interpret=setup_interpret
+    if dispatch.kernel_mode(cfg, interpret) == dispatch.XLA:
+        shadow_cfg = dataclasses.replace(cfg, width=S, height=S)
+    else:
+        # The light's ortho view concentrates the whole scene into few tiles,
+        # hence the light-view binning budgets of shadow_bin_config.
+        shadow_cfg = shadow_bin_config(cfg, state.geometry.tri_mesh_id.shape[0])
+    tris = setup_light_view_triangles(state, cfg, shadow_cfg, lvp)
+    sd, s_overflow = dispatch.rasterize_depth(
+        tris.packed, tris.aabb, shadow_cfg, interpret=interpret
     )
-
-    if on_tpu:
-        from .raster_pallas import rasterize_depth
-
-        sd, s_overflow = rasterize_depth(
-            tris.packed, tris.aabb, shadow_cfg, return_overflow=True
-        )
-        if return_overflow:
-            return sd, lvp, s_overflow
-        return sd, lvp
-    frags = rasterize_packed(tris.packed, S, S)
     if return_overflow:
-        return frags.depth, lvp, jnp.zeros((), jnp.int32)
-    return frags.depth, lvp
+        return sd, lvp, s_overflow
+    return sd, lvp
 
 
 def shadow_visibility(
@@ -249,7 +209,9 @@ def shadow_visibility(
     xs = (jnp.arange(W, dtype=jnp.float32) + 0.5) * (2.0 / W) - 1.0
     ys = 1.0 - (y_offset + jnp.arange(H, dtype=jnp.float32) + 0.5) * (2.0 / FH)
     ndc_y, ndc_x = jnp.meshgrid(ys, xs, indexing="ij")
-    M = jnp.linalg.inv(view_proj) @ light_vp
+    M = jnp.matmul(
+        jnp.linalg.inv(view_proj), light_vp, precision=jax.lax.Precision.HIGHEST
+    )
     lc = (
         ndc_x[..., None] * M[0]
         + ndc_y[..., None] * M[1]
@@ -265,9 +227,8 @@ def shadow_visibility(
     )
     d = max(1, cfg.shadow_vis_downsample)
     if d > 1:
-        # Per-pixel gathers from the shadow map are the expensive part
-        # (~11 ns each on TPU): compare at every d-th pixel and bilinearly
-        # upsample the visibility field (cfg.shadow_vis_downsample).
+        # Compare at every d-th pixel and bilinearly upsample the
+        # visibility field (cfg.shadow_vis_downsample).
         H, W = z.shape
         o = d // 2
         uv_c = uv[o::d, o::d]
@@ -347,7 +308,9 @@ def _shadow_visibility_sparse(
     ndc_x = (pxf + 0.5) * (2.0 / W) - 1.0
     ndc_y = 1.0 - (pyf + 0.5) * (2.0 / H)
 
-    M = jnp.linalg.inv(view_proj) @ light_vp
+    M = jnp.matmul(
+        jnp.linalg.inv(view_proj), light_vp, precision=jax.lax.Precision.HIGHEST
+    )
     lc = (
         ndc_x[..., None] * M[0]
         + ndc_y[..., None] * M[1]

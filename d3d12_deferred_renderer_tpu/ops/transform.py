@@ -6,7 +6,7 @@ What D3D12 does in the input assembler + vertex shader + primitive setup
 1. ``vertex_transform``: one batched matmul over the unified vertex buffer.  The
    reference re-uploads per-mesh MVP constant buffers and issues one draw per mesh
    (main.cpp:210-241); here every mesh's matrix is computed at once ([M,4,4]) and
-   gathered per vertex, so the whole scene transforms in a single MXU-friendly op.
+   gathered per vertex, so the whole scene transforms in a single batched op.
 
 2. ``triangle_setup``: perspective divide, viewport transform (D3D convention:
    y flipped, pixel centers at +0.5), back-face cull (FrontCounterClockwise=TRUE,
@@ -33,8 +33,8 @@ from .. import xmath
 from ..config import RendererConfig
 from ..scene import SceneState
 
-# Packed triangle-record layout (float32 lanes) consumed by the Pallas rasterizer.
-# Kept in one flat [T, TRI_STRIDE] array so the kernel can DMA whole records.
+# Packed triangle-record layout (float32 columns) consumed by the rasterizers.
+# One flat [T, TRI_STRIDE] array: a record is one 128-byte row.
 TRI_X0, TRI_Y0, TRI_X1, TRI_Y1, TRI_X2, TRI_Y2 = 0, 1, 2, 3, 4, 5
 TRI_Z0, TRI_Z1, TRI_Z2 = 6, 7, 8
 TRI_RW0, TRI_RW1, TRI_RW2 = 9, 10, 11
@@ -47,7 +47,7 @@ TRI_UV2 = 25  # 25-26
 TRI_MESH_ID = 27
 TRI_VALID = 28
 TRI_AREA = 29  # canonical (positive) doubled area
-TRI_STRIDE = 32  # padded for aligned VMEM rows
+TRI_STRIDE = 32  # padded to a power of two (128-byte rows)
 
 
 class TriSetup(NamedTuple):
@@ -60,6 +60,14 @@ class TriSetup(NamedTuple):
     @property
     def num_triangles(self) -> int:
         return int(self.packed.shape[0])
+
+
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    """float32 matrix product at full precision (never TF32)."""
+    return jnp.matmul(a, b, precision=_HIGHEST)
 
 
 def camera_matrices(state: SceneState, cfg: RendererConfig):
@@ -87,8 +95,8 @@ def vertex_transform(
         )  # [M,4,4]
     if view_proj is None:
         view, proj = camera_matrices(state, cfg)
-        view_proj = view @ proj
-    mvp = model @ view_proj  # [M,4,4]
+        view_proj = _mm(view, proj)
+    mvp = _mm(model, view_proj)  # [M,4,4]
 
     vm = geo.vertex_mesh_id
     clip = xmath.transform_points(geo.logical_positions(), mvp[vm])     # [V,4]
@@ -105,21 +113,20 @@ def face_vertex_transform(state: SceneState, cfg: RendererConfig):
     Returns (clip [I,4], world_normal [I,3], view_proj [4,4]) with I = 3*T rows
     in triangle submission order — feed triangle_setup(pregathered=True).
 
-    The per-vertex matrix selection is a one-hot contraction, NOT a gather:
-    one [I,4] x [4, M*4] MXU matmul against every mesh's matrix at once, then
-    a masked reduction over the (small) mesh axis — row gathers of [M,4,4]
-    cost ~1 ms at 72k face-vertices on TPU; this is pure MXU/VPU."""
+    The per-vertex matrix selection is a one-hot contraction, not a gather:
+    one [I,4] x [4, M*4] product against every mesh's matrix at once, then a
+    masked reduction over the (small) mesh axis."""
     geo = state.geometry
     model = xmath.model_matrix(state.position, state.orientation, state.scale)
     view, proj = camera_matrices(state, cfg)
-    view_proj = view @ proj
-    mvp = model @ view_proj
+    view_proj = _mm(view, proj)
+    mvp = _mm(model, view_proj)
 
     fm = geo.fv_mesh_id
     I = fm.shape[0]
     M = mvp.shape[0]
     onehot = (fm[:, None] == jnp.arange(M, dtype=fm.dtype)).astype(jnp.float32)
-    hp = jax.lax.Precision.HIGHEST
+    hp = _HIGHEST
 
     pos_h = jnp.concatenate(
         [geo.fv_positions, jnp.ones((I, 1), jnp.float32)], axis=-1
@@ -141,13 +148,8 @@ def face_vertex_transform(state: SceneState, cfg: RendererConfig):
 # Stacked-column (structure-of-arrays) primitive setup.
 #
 # Every stage below operates on stacked [vert, comp, T] arrays — the triangle
-# axis IS the lane axis, and the small vert/comp axes live in sublanes, so one
-# XLA op processes every component of every vertex at once.  (An earlier
-# formulation kept each component as its own [T] column: identical layout
-# economics, but ~200 tiny dispatches per frame whose fixed overhead dominated
-# — ~2.5 ms at 24k tris on v5e.  The even earlier [T, 3, 4] row layout padded
-# its 3/4-wide minor dims to the 128-lane tile, wasting ~30-60x per op.)
-# The per-element arithmetic is identical across all three formulations.
+# axis is the minor (contiguous) axis, so one XLA op processes every component
+# of every vertex at once instead of one small op per component.
 # ---------------------------------------------------------------------------
 
 
@@ -182,8 +184,8 @@ def _clip_near_plane_stack(c, n, uv):
 
     def rot(a):
         # r is one of 3 cyclic rotations of the vertex axis: a where-chain over
-        # the two static rolls beats take_along_axis (a per-element gather on
-        # TPU), and rolling the stacked array keeps it to 2 selects total.
+        # the two static rolls instead of a per-element take_along_axis
+        # gather, and rolling the stacked array keeps it to 2 selects total.
         a1 = jnp.concatenate([a[1:], a[:1]], axis=0)  # v -> (v+1) % 3
         a2 = jnp.concatenate([a[2:], a[:2]], axis=0)  # v -> (v+2) % 3
         return jnp.where(r == 0, a, jnp.where(r == 1, a1, a2))
@@ -390,14 +392,15 @@ def _setup_cols(
 
 
 def _fv_select_mats(tri_mesh_id, mvp: jnp.ndarray, model, attrs: bool = True):
-    """Per-triangle matrix selection as one one-hot MXU matmul of the flattened
-    matrix tables against [M, T] (HIGHEST precision keeps the bf16x3 one-hot
-    selection bit-exact: a float32 splits exactly into 3 bf16 terms).
+    """Per-triangle matrix selection as one one-hot product of the flattened
+    matrix tables against [M, T].  HIGHEST precision keeps the one-hot
+    selection bit-exact (a reduced-precision product would round the selected
+    float32 matrix entries).
 
     Returns (selC [16, T], selN [9, T] or None): row k*4+c of selC is
     mvp[mesh_id(t), k, c]; row k*3+j of selN is model[mesh_id(t), k, j]."""
     M = mvp.shape[0]
-    hp = jax.lax.Precision.HIGHEST
+    hp = _HIGHEST
     onehot = (
         tri_mesh_id[None, :] == jnp.arange(M, dtype=tri_mesh_id.dtype)[:, None]
     ).astype(jnp.float32)  # [M, T]
@@ -414,10 +417,8 @@ def _fv_transform_cols(geo, mvp: jnp.ndarray, model: jnp.ndarray,
                        attrs: bool = True):
     """Column-layout gather-free transform of the face-vertex buffers.
 
-    The per-TRIANGLE matrix selection is one one-hot MXU matmul (see
-    _fv_select_mats), shared by the triangle's 3 vertices — the old per-VERTEX
-    row formulation did 3x the selection work and paid ~30x lane padding on its
-    [I, M, 4] reduction.
+    The per-TRIANGLE matrix selection is one one-hot product (see
+    _fv_select_mats), shared by the triangle's 3 vertices.
     Returns (c_cols, n_cols, uv_cols) for _setup_cols; attrs=False (depth-only
     passes) skips the normal transform and returns (c_cols, None, None)."""
 
@@ -455,39 +456,21 @@ def _fv_transform_cols(geo, mvp: jnp.ndarray, model: jnp.ndarray,
 
 
 def setup_frame_triangles(
-    state: SceneState, cfg: RendererConfig, setup_interpret: bool = False, **kw
+    state: SceneState, cfg: RendererConfig, **kw
 ) -> tuple:
     """Full front-end: vertex transform + triangle setup.  Returns (TriSetup, view_proj).
 
     Uses the gather-free column face-vertex path when the geometry carries the
     host-pre-expanded fv_* buffers (always, for scenes built this round);
-    falls back to the indexed path for geometry resumed from old checkpoints.
-    With cfg.setup_pallas on TPU (or `setup_interpret` for tests), the whole
-    setup runs as one fused Pallas kernel (ops/setup_pallas.py) — records equal
-    up to FMA-contraction rounding (see that module's docstring), one launch
-    instead of ~a hundred XLA fusions."""
+    falls back to the indexed path for geometry resumed from old checkpoints."""
     geo = state.geometry
     model = xmath.model_matrix(state.position, state.orientation, state.scale)
     view, proj = camera_matrices(state, cfg)
-    view_proj = view @ proj
+    view_proj = _mm(view, proj)
     if geo.fv_positions is not None:
-        use_kernel = (
-            cfg.setup_pallas
-            and geo.fv_pos_cols is not None
-            and kw.get("near_clip", True)
-            and (setup_interpret or jax.default_backend() == "tpu")
+        c_cols, n_cols, uv_cols = _fv_transform_cols(
+            geo, _mm(model, view_proj), model
         )
-        if use_kernel:
-            from .setup_pallas import setup_triangles_pallas
-
-            tris = setup_triangles_pallas(
-                geo, model @ view_proj, model, cfg,
-                cull=kw.get("cull", "back"),
-                front_ccw=kw.get("front_ccw", True),
-                interpret=setup_interpret,
-            )
-            return tris, view_proj
-        c_cols, n_cols, uv_cols = _fv_transform_cols(geo, model @ view_proj, model)
         tris = _setup_cols(c_cols, n_cols, uv_cols, geo.tri_mesh_id, cfg, **kw)
     else:
         clip, world_n, view_proj = vertex_transform(

@@ -42,17 +42,16 @@ def staged_config():
 
 
 def kernel_config():
-    """The Pallas-interpret dry-run config: the SAME sharded band path the TPU
-    runs (binned record stream + fused Mosaic mono-kernel per band) through
-    the interpreter.  Tiny shapes bound the interpreter cost; the config-4
-    extras are covered by the staged step."""
+    """The Pallas-interpret dry-run config: the SAME sharded band path a GPU
+    runs (binned record stream + the Triton raster and shading kernels per
+    band) through the interpreter.  Tiny shapes bound the interpreter cost;
+    the config-4 extras are covered by the staged step."""
     import d3d12_deferred_renderer_tpu as dxr
 
     return dxr.RendererConfig(
         width=128,
         height=64,
         use_pallas=True,
-        fused=True,
         shading="pbr",
         shadows=False,
         bloom=False,
@@ -82,8 +81,9 @@ def factor_axes(n_devices: int, height: int = 32):
 
 
 def assert_matches_single_device(got, start_state, cfg, max_lsb, name):
-    """Sharded output must equal the sequential single-device render — the
-    same bounds tests/test_parallel.py pins (bit-exact for Lambert, <= 1 u8
+    """Sharded output must equal the sequential single-device render (one
+    jitted frame program, like the sharded one) — the same bounds
+    tests/test_parallel.py pins (bit-exact for Lambert, <= 1 u8
     LSB for PBR band-local light culling).  This makes the recorded MULTICHIP
     artifact certify pixel-correct multi-chip rendering, not just
     completion."""
@@ -92,7 +92,7 @@ def assert_matches_single_device(got, start_state, cfg, max_lsb, name):
     s = start_state
     got = np.asarray(got)
     for i in range(got.shape[0]):
-        s, f = dxr.step_frame(s, cfg)
+        s, f = dxr.step_frame_jit(s, cfg)
         diff = np.abs(got[i].astype(int) - np.asarray(f).astype(int))
         assert diff.max() <= max_lsb, (
             name, i, int(diff.max()), float((diff > 0).mean())
@@ -125,7 +125,7 @@ def run_staged(n_devices: int) -> None:
 
 
 def run_interpret(n_devices: int) -> None:
-    """Interpret-mode Pallas banded step: the kernel code branch the TPU runs,
+    """Interpret-mode Pallas banded step: the kernel code branch a GPU runs,
     asserted against the staged single-device XLA path (<= 1 u8 LSB, the
     test_band_raster.py bound)."""
     from .mesh import make_mesh
@@ -144,7 +144,7 @@ def run_interpret(n_devices: int) -> None:
     assert frames_k.shape == (2, cfg_k.height, cfg_k.width, 3), frames_k.shape
     assert_matches_single_device(
         frames_k, state,
-        dataclasses.replace(cfg_k, use_pallas=False, fused=False),
+        dataclasses.replace(cfg_k, use_pallas=False),
         1, "pallas-interpret bands",
     )
 

@@ -1,13 +1,13 @@
 """Device-mesh construction for multi-chip rendering.
 
 The reference has NO distributed anything (SURVEY.md §2: parallelism ABSENT — its
-only concurrency is 3 frames of CPU<->GPU pipelining).  Scaling a renderer over TPU
-chips composes three axes: screen-row bands shard across one mesh axis (the
+only concurrency is 3 frames of CPU<->GPU pipelining).  Scaling a renderer over
+several devices composes three axes: screen-row bands shard across one mesh axis (the
 sequence-parallel analog — the G-buffer never crosses chips), batched frames across
 another (the data-parallel analog), and the triangle stream across a third
 (sort-last compositing, the geometry/tensor-parallel analog — partial fragment
-buffers merge with pmin/psum_scatter collectives).  Collectives ride ICI; the
-pixel-parallel paths gather only the final uint8 framebuffer.
+buffers merge with pmin/psum_scatter collectives).  The pixel-parallel paths
+gather only the final uint8 framebuffer.
 """
 from __future__ import annotations
 

@@ -5,25 +5,25 @@ Strategy (SURVEY.md §5 "distributed communication backend"): rendering is data
 parallel over pixels — scene state is replicated (it is small), every chip runs
 vertex transform + binning for its own screen band, rasterizes and shades only that
 band, and the G-buffer NEVER crosses chips.  The only cross-chip data movement is
-the implicit assembly of the final uint8 frame (out_specs concatenation over ICI).
+the implicit assembly of the final uint8 frame (out_specs concatenation across devices).
 A second mesh axis batches whole frames (BASELINE config 5: 8 frames per jit step).
 
 A third axis shards the GEOMETRY (`render_tri_sharded`): each chip rasterizes a
 contiguous slice of the triangle stream over the (band of the) screen, and the
 partial fragment buffers composite with a depth-min + submission-order tie-break
 — classic sort-last compositing, expressed as two `pmin`s and a fused
-`psum_scatter` over ICI.  Pixel-parallel bands win when pixels dominate;
+`psum_scatter` across devices.  Pixel-parallel bands win when pixels dominate;
 triangle shards win when geometry dominates (the raster/binning cost splits by
 T while the composite traffic is a constant few framebuffer planes).
 
-All functions run under shard_map with static RendererConfig, so XLA compiles one
-SPMD program; `dryrun_multichip` in __graft_entry__.py validates this on a virtual
+All functions run under a jitted shard_map with static RendererConfig, so XLA
+compiles one SPMD program (an eager shard_map would dispatch the body op by
+op); `dryrun_multichip` in __graft_entry__.py validates this on a virtual
 CPU mesh.
 """
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import NamedTuple, Tuple
 
 import jax
@@ -31,10 +31,9 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..config import RendererConfig
-from ..ops import post
+from ..ops import dispatch, post
 from ..ops.gbuffer import encode_gbuffer
-from ..ops.lighting import shade_lambert, shade_pbr_tiled
-from ..ops.raster_ref import rasterize_packed
+from ..ops.lighting import shade_lambert
 from ..ops.transform import setup_frame_triangles
 from ..scene import SceneState
 from ..xmath import XM_2PI
@@ -98,7 +97,7 @@ def _bloom_band(
 ) -> jnp.ndarray:
     """post.bloom over the FULL frame, evaluated band-locally: the 4x-
     downsampled thresholded bright field is tiny (~1.5 MB f32 at 1080p), so
-    each chip all-gathers it over ICI, runs the single-chip blur verbatim on
+    each chip all-gathers it, runs the single-chip blur verbatim on
     the identical full array, and keeps its own rows — bit-identical to
     post.bloom on the assembled frame (requires band % downsample == 0 so the
     per-band [::4] slices concatenate to the global one)."""
@@ -172,45 +171,11 @@ def _render_band(
     the band-local per-tile capacity overflow count (the single-chip
     no-silent-drop contract, frame.render_stats) — callers psum it over the
     rows axis."""
-    W = cfg.width
-    overflow = jnp.zeros((), jnp.int32)
-    on_mosaic = cfg.use_pallas and (
-        jax.default_backend() == "tpu" or pallas_interpret
-    )
-
-    from ..frame import _fused_eligible
-
-    if _fused_eligible(cfg, interpret=pallas_interpret) and band_h % cfg.tile_h == 0:
-        # The flagship fused mono-kernel, per band (frame._fused_eligible is
-        # the shared gate): binning/prepass/culling/shadows/raster/shade all
-        # run band-local; the kernel returns linear HDR and the cross-band
-        # post chain below finishes exactly like the staged branch.  Bands not
-        # aligned to the tile grid fall through to the staged branch (which
-        # supports any band height) instead of failing.
-        from ..ops.fused import render_fused
-
-        hdr, f_overflow = render_fused(
-            state, cfg, interpret=pallas_interpret, return_overflow=True,
-            band_h=band_h, y_offset=y0,
-        )
-        color = _post_band(hdr, cfg, axes)
-        return post.to_uint8(color), f_overflow
-
     tris, view_proj = setup_frame_triangles(state, cfg)
-
-    if on_mosaic:
-        from ..ops.raster_pallas import rasterize_binned
-
-        frags, r_overflow = rasterize_binned(
-            tris.packed, tris.aabb, cfg, interpret=pallas_interpret,
-            band_h=band_h, y_offset=y0, return_overflow=True,
-        )
-        overflow = overflow + r_overflow
-    else:
-        ys = jnp.asarray(y0, jnp.float32) + 0.5 + jnp.arange(band_h, dtype=jnp.float32)
-        xs = jnp.arange(W, dtype=jnp.float32) + 0.5
-        py, px = jnp.meshgrid(ys, xs, indexing="ij")
-        frags = rasterize_packed(tris.packed, band_h, W, px=px, py=py)
+    frags, overflow = dispatch.rasterize(
+        tris.packed, tris.aabb, cfg, band_h=band_h, y_offset=y0,
+        interpret=pallas_interpret,
+    )
     color, s_overflow = _shade_band(
         frags, state, cfg, view_proj, y0, axes, pallas_interpret
     )
@@ -227,16 +192,10 @@ def _shade_band(
     cross-band filter collective goes through.  Returns (uint8 band,
     shading-side overflow); raster overflow is the caller's."""
     overflow = jnp.zeros((), jnp.int32)
-    band_h, W = frags.depth.shape
-    on_mosaic = cfg.use_pallas and (
-        jax.default_backend() == "tpu" or pallas_interpret
-    )
     if cfg.normal_mapping:
-        # Band-local and exact when bands align to the tile_h block grid
+        # Band-local and exact when bands align to the bump block grid
         # (checked in _check_band_safe): blocks never straddle a band, so the
-        # per-block derivatives equal the single-chip ones.  Always the XLA
-        # block path — the Pallas bump kernel has no band offset (and its
-        # Mosaic-parity purpose is the single-chip fused/staged pair).
+        # per-block derivatives equal the single-chip ones.
         from ..ops.bump import apply_normal_mapping
         from ..ops.lighting import reconstruct_world_positions
 
@@ -244,7 +203,7 @@ def _shade_band(
             frags.depth, view_proj, cfg, y_offset=y0, full_height=cfg.height
         )
         frags = apply_normal_mapping(
-            frags, world, cfg, cfg.bump_strength, cfg.bump_frequency
+            frags, world, cfg.bump_strength, cfg.bump_frequency
         )
     gb = encode_gbuffer(frags, state.materials, cfg)
 
@@ -260,33 +219,18 @@ def _shade_band(
             from ..ops.shadows import render_shadow_map, shadow_visibility
 
             shadow_depth, light_vp, s_overflow = render_shadow_map(
-                state, cfg, return_overflow=True
+                state, cfg, return_overflow=True, interpret=pallas_interpret
             )
             vis, v_overflow = shadow_visibility(
                 gb.depth, view_proj, shadow_depth, light_vp, cfg,
                 y_offset=y0, full_height=cfg.height, return_overflow=True,
             )
             overflow = overflow + s_overflow + v_overflow
-        if on_mosaic:
-            # Bands shade through the same Mosaic deferred-lighting kernel as
-            # the single-chip staged path (frame.py) — the pure-XLA tiled scan
-            # is ~20x slower on chip.  Band rows map to full-frame NDC via the
-            # U_Y0 uniform; light culling sees the same offset.
-            from ..ops.lighting_pallas import shade_pbr_tiled_pallas
-
-            hdr, l_overflow = shade_pbr_tiled_pallas(
-                gb, state.lights, cfg, view_proj, state.camera.eye,
-                shadow_visibility=vis, interpret=pallas_interpret,
-                y_offset=y0, full_height=cfg.height, return_overflow=True,
-            )
-        else:
-            # The light-culling tile must divide the band height and the width.
-            tile = math.gcd(32, band_h, W)
-            hdr, l_overflow = shade_pbr_tiled(
-                gb, state.lights, cfg, view_proj, state.camera.eye, tile=tile,
-                shadow_visibility=vis, y_offset=y0, full_height=cfg.height,
-                return_overflow=True,
-            )
+        hdr, l_overflow = dispatch.shade_pbr(
+            gb, state.lights, cfg, view_proj, state.camera.eye,
+            shadow_visibility=vis, y_offset=y0, full_height=cfg.height,
+            interpret=pallas_interpret,
+        )
         overflow = overflow + l_overflow
         color = _post_band(hdr, cfg, axes)
     return post.to_uint8(color), overflow
@@ -298,6 +242,7 @@ def _check_band_safe(cfg: RendererConfig, band: int) -> None:
     each needs the band height to respect its grid — refuse loudly instead of
     diverging silently from the single-chip render() (round-1 advisor
     finding)."""
+    from ..ops.bump import BUMP_BLOCK
     from ..ops.post import BLOOM_DOWNSAMPLE
 
     if cfg.bloom and band % BLOOM_DOWNSAMPLE:
@@ -306,11 +251,11 @@ def _check_band_safe(cfg: RendererConfig, band: int) -> None:
             f"downsample, got {band}: choose a band count so "
             f"height/bands % {BLOOM_DOWNSAMPLE} == 0"
         )
-    if cfg.normal_mapping and band % cfg.tile_h:
+    if cfg.normal_mapping and band % BUMP_BLOCK[0]:
         raise ValueError(
-            f"normal mapping needs band height divisible by the tile_h="
-            f"{cfg.tile_h} block grid, got {band}: blocks must not straddle "
-            "band boundaries"
+            f"normal mapping needs band height divisible by the "
+            f"{BUMP_BLOCK[0]}-row bump block grid, got {band}: blocks must "
+            "not straddle band boundaries"
         )
     if cfg.shadows and max(1, cfg.shadow_vis_downsample) > 1:
         raise ValueError(
@@ -345,11 +290,11 @@ def render_sharded(
         )
         return frame, jax.lax.psum(overflow, rows_axis)
 
-    frame, overflow = jax.shard_map(
+    frame, overflow = jax.jit(jax.shard_map(
         fn, mesh=mesh, in_specs=P(),
         out_specs=(P(rows_axis, None, None), P()),
         check_vma=False,
-    )(state)
+    ))(state)
     if return_stats:
         return frame, {"overflow": overflow}
     return frame
@@ -365,10 +310,6 @@ def _raster_band_tri_slice(
     ceil(T / n_t) records after setup.  Zero padding records carry
     TRI_VALID == 0 and can never win a pixel.  Returns
     (FragmentPlanes, view_proj, raster overflow)."""
-    W = cfg.width
-    on_mosaic = cfg.use_pallas and (
-        jax.default_backend() == "tpu" or pallas_interpret
-    )
     tris, view_proj = setup_frame_triangles(state, cfg)
     packed, aabb = tris.packed, tris.aabb
     T = packed.shape[0]
@@ -380,21 +321,9 @@ def _raster_band_tri_slice(
     tid = jax.lax.axis_index(tri_axis)
     pk = jax.lax.dynamic_slice_in_dim(packed, tid * per, per, 0)
     ab = jax.lax.dynamic_slice_in_dim(aabb, tid * per, per, 0)
-    if on_mosaic:
-        from ..ops.raster_pallas import rasterize_binned
-
-        frags, overflow = rasterize_binned(
-            pk, ab, cfg, interpret=pallas_interpret,
-            band_h=band_h, y_offset=y0, return_overflow=True,
-        )
-    else:
-        ys = jnp.asarray(y0, jnp.float32) + 0.5 + jnp.arange(
-            band_h, dtype=jnp.float32
-        )
-        xs = jnp.arange(W, dtype=jnp.float32) + 0.5
-        py, px = jnp.meshgrid(ys, xs, indexing="ij")
-        frags = rasterize_packed(pk, band_h, W, px=px, py=py)
-        overflow = jnp.zeros((), jnp.int32)
+    frags, overflow = dispatch.rasterize(
+        pk, ab, cfg, band_h=band_h, y_offset=y0, interpret=pallas_interpret
+    )
     return frags, view_proj, overflow
 
 
@@ -460,10 +389,8 @@ def render_tri_sharded(
     band_h / n_tri rows using the same cross-band-exact filter machinery as
     `render_sharded` (the combined (rows, tri) axis tuple is one flat band
     axis to every collective).  This path always runs the raster -> shade
-    STAGED pipeline: compositing needs the fragment buffer between the two, so
-    the fused mono-kernel cannot apply; on-chip output therefore matches the
-    single-chip staged path (cfg.fused=False), which the fused path itself
-    tracks within its documented LSB bound.
+    staged pipeline, like the single-chip frame: compositing needs the
+    fragment buffer between the two.
 
     With return_stats=True returns (frame, stats) with the summed overflow
     signal, like render_sharded."""
@@ -495,11 +422,11 @@ def render_tri_sharded(
         )
         return color, jax.lax.psum(r_ovf + s_ovf, axes.psum_axes)
 
-    frame, overflow = jax.shard_map(
+    frame, overflow = jax.jit(jax.shard_map(
         fn, mesh=mesh, in_specs=P(),
         out_specs=(P(axes.spec, None, None), P()),
         check_vma=False,
-    )(state)
+    ))(state)
     if return_stats:
         return frame, {"overflow": overflow}
     return frame
@@ -555,13 +482,13 @@ def render_frames_batch_tri_sharded(
         )
         return frames, total
 
-    frames, overflow = jax.shard_map(
+    frames, overflow = jax.jit(jax.shard_map(
         fn,
         mesh=mesh,
         in_specs=(P(), P(frame_axis)),
         out_specs=(P(frame_axis, axes.spec, None, None), P()),
         check_vma=False,
-    )(state, times)
+    ))(state, times)
     if return_stats:
         return frames, {"overflow": overflow}
     return frames
@@ -610,13 +537,13 @@ def render_frames_batch_sharded(
         )
         return frames, total
 
-    frames, overflow = jax.shard_map(
+    frames, overflow = jax.jit(jax.shard_map(
         fn,
         mesh=mesh,
         in_specs=(P(), P(frame_axis)),
         out_specs=(P(frame_axis, rows_axis, None, None), P()),
         check_vma=False,
-    )(state, times)
+    ))(state, times)
     if return_stats:
         return frames, {"overflow": overflow}
     return frames

@@ -1,6 +1,6 @@
 """ctypes bindings for the native threaded frame sink (native/framesink.cpp).
 
-The TPU-native 'Present': frames are copied into a bounded native ring (blocking
+The renderer's 'Present': frames are copied into a bounded native ring (blocking
 only when full — the reference's fence-wait backpressure, main.cpp:167-171) and a
 C++ worker pool PNG-encodes and writes them off the render thread.  Falls back to
 the in-process Python writer when the library can't be built.

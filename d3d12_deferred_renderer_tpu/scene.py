@@ -2,7 +2,7 @@
 
 Replaces the reference's file-scope globals + per-frame constant-buffer uploads
 (source/main.cpp:118-128, 236-250) with a single immutable pytree that flows through
-the jitted frame function — the TPU analog of the persistently-mapped upload heap is
+the jitted frame function — the analog of the persistently-mapped upload heap is
 donating this pytree into the XLA program.
 
 The animation rule matches main.cpp:200-207: time advances 0.01 rad per frame, wraps

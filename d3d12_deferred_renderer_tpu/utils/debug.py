@@ -10,23 +10,31 @@ inside LoadObjFile when an asset is missing, main.cpp:824-826).
 from __future__ import annotations
 
 import contextlib
+import os
 
 import jax
 import numpy as np
 
 
-def enable_compilation_cache(path: str = "/tmp/dxr_jax_cache",
-                             min_compile_secs: float = 2.0) -> None:
-    """Persistent XLA compilation cache.
+# The checkout this package runs from (utils/ -> package/ -> checkout/).
+_CHECKOUT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
 
-    XLA:TPU compile time for the frame program scales roughly linearly with the
-    triangle count (~10 s at 24k tris, minutes past ~1M) even though runtime stays
-    sub-millisecond; the cache makes every compile after the first free across
-    processes.  Called by bench.py and tools/demo.py."""
-    import jax as _jax
 
-    _jax.config.update("jax_compilation_cache_dir", path)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", min_compile_secs)
+def enable_compilation_cache(min_compile_secs: float = 2.0) -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    Where JAX_COMPILATION_CACHE_DIR is set, JAX keeps the cache there on its
+    own and no other directory is set here; otherwise the cache is the fixed
+    `.jax_cache/` inside the checkout (a fixed path, so later runs find it).
+    Called by chip_smoke.py, bench.py and tools/demo.py."""
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = os.path.join(_CHECKOUT, ".jax_cache")
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", min_compile_secs)
+    return path
 
 
 @contextlib.contextmanager

@@ -15,6 +15,7 @@ leading axes where noted.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 __all__ = [
@@ -28,6 +29,14 @@ __all__ = [
     "transform_vectors",
     "normalize",
 ]
+
+# Every product here is float32 at full precision: a GPU would otherwise run
+# default-precision float32 products in TF32 (~3 decimal digits).
+_HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HIGHEST)
 
 XM_PI = 3.141592653589793
 XM_2PI = 2.0 * XM_PI
@@ -66,7 +75,12 @@ def look_at_lh(eye, at, up, dtype=jnp.float32):
     r1 = jnp.stack([x[1], y[1], z[1], jnp.zeros((), dtype)])
     r2 = jnp.stack([x[2], y[2], z[2], jnp.zeros((), dtype)])
     r3 = jnp.stack(
-        [-jnp.dot(x, eye), -jnp.dot(y, eye), -jnp.dot(z, eye), jnp.ones((), dtype)]
+        [
+            -jnp.dot(x, eye, precision=_HIGHEST),
+            -jnp.dot(y, eye, precision=_HIGHEST),
+            -jnp.dot(z, eye, precision=_HIGHEST),
+            jnp.ones((), dtype),
+        ]
     )
     return jnp.stack([r0, r1, r2, r3])
 
@@ -155,7 +169,7 @@ def rotation_roll_pitch_yaw(pitch, yaw, roll, dtype=jnp.float32):
     pitch = jnp.asarray(pitch, dtype)
     yaw = jnp.asarray(yaw, dtype)
     roll = jnp.asarray(roll, dtype)
-    return _rot_z(roll, dtype) @ _rot_x(pitch, dtype) @ _rot_y(yaw, dtype)
+    return _mm(_mm(_rot_z(roll, dtype), _rot_x(pitch, dtype)), _rot_y(yaw, dtype))
 
 
 def scaling(sx, sy, sz, dtype=jnp.float32):
@@ -209,7 +223,7 @@ def model_matrix(position, orientation, scale, dtype=jnp.float32):
         orientation[..., 0], orientation[..., 1], orientation[..., 2], dtype
     )
     t = translation(position[..., 0], position[..., 1], position[..., 2], dtype)
-    return s @ r @ t
+    return _mm(_mm(s, r), t)
 
 
 def transform_points(points, m):
@@ -219,7 +233,7 @@ def transform_points(points, m):
     Equivalent to geometry.hlsl:32-34 with the composed matrix.
     """
     p = jnp.concatenate([points, jnp.ones_like(points[..., :1])], axis=-1)
-    return jnp.einsum("...i,...ij->...j", p, m)
+    return jnp.einsum("...i,...ij->...j", p, m, precision=_HIGHEST)
 
 
 def transform_vectors(vectors, m):
@@ -229,4 +243,6 @@ def transform_vectors(vectors, m):
     the *model* matrix, NOT its inverse-transpose (a preserved fidelity quirk:
     normals are only correct under rigid transforms + uniform scale).
     """
-    return jnp.einsum("...i,...ij->...j", vectors, m[..., :3, :3])
+    return jnp.einsum(
+        "...i,...ij->...j", vectors, m[..., :3, :3], precision=_HIGHEST
+    )

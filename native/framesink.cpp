@@ -1,7 +1,7 @@
 // Native frame sink: threaded PNG encode + write, decoupled from the render loop.
 //
 // The reference's presentation path is native (swapchain Present + fence,
-// reference: source/main.cpp:337-341); the TPU renderer's equivalent "display" is
+// reference: source/main.cpp:337-341); this renderer's equivalent "display" is
 // persisting/streaming frames off the host.  Encoding PNGs in the Python loop would
 // serialize against render dispatch, so this C++ sink owns a bounded ring of frame
 // buffers and a worker pool: the render loop memcpys a frame in (blocking only when

@@ -26,9 +26,8 @@ def _flat_quad_frags(h=32, w=32):
 
 
 def test_bump_perturbs_unit_normals():
-    cfg = dxr.RendererConfig()
     frags, world = _flat_quad_frags()
-    out = apply_normal_mapping(frags, world, cfg, strength=0.4, freq=3.0)
+    out = apply_normal_mapping(frags, world, strength=0.4, freq=3.0)
     n = np.asarray(out.normal)
     lens = np.linalg.norm(n, axis=-1)
     np.testing.assert_allclose(lens, 1.0, atol=1e-5)      # unit length
@@ -39,56 +38,32 @@ def test_bump_perturbs_unit_normals():
 
 
 def test_bump_strength_zero_is_identity_on_unit_normals():
-    cfg = dxr.RendererConfig()
     frags, world = _flat_quad_frags()
-    out = apply_normal_mapping(frags, world, cfg, strength=0.0, freq=3.0)
+    out = apply_normal_mapping(frags, world, strength=0.0, freq=3.0)
     np.testing.assert_allclose(np.asarray(out.normal), np.asarray(frags.normal),
                                atol=1e-6)
 
 
 def test_background_untouched():
-    cfg = dxr.RendererConfig()
     frags, world = _flat_quad_frags()
     frags = frags._replace(mesh_id=jnp.full_like(frags.mesh_id, -1))
-    out = apply_normal_mapping(frags, world, cfg)
+    out = apply_normal_mapping(frags, world)
     np.testing.assert_array_equal(np.asarray(out.normal), np.asarray(frags.normal))
 
 
-def test_pallas_bump_matches_xla_block_path():
-    """The staged TPU path's Pallas bump kernel (interpret mode) must agree
-    with the XLA block implementation: same bump_planar body, same tile-block
-    derivatives; only the world-position reconstruction differs in op order
-    (einsum + divide vs per-plane FMA + reciprocal), so agreement is
-    near-exact, and background pixels are bit-identical (untouched)."""
-    from d3d12_deferred_renderer_tpu.ops.bump import (
-        _apply_normal_mapping_pallas,
-    )
-    from d3d12_deferred_renderer_tpu.ops.lighting import (
-        reconstruct_world_positions,
-    )
-    from d3d12_deferred_renderer_tpu import frame as fr
-    from d3d12_deferred_renderer_tpu.ops.transform import setup_frame_triangles
-    from d3d12_deferred_renderer_tpu.ops.raster_ref import rasterize_packed
+def test_bump_blocks_do_not_follow_the_raster_tile():
+    """The derivative block is image semantics (BUMP_BLOCK), not the raster
+    tile: a config with another raster tile renders the same bumped image."""
+    from d3d12_deferred_renderer_tpu.ops.bump import BUMP_BLOCK
 
-    cfg = dxr.RendererConfig(width=256, height=64, use_pallas=False,
-                             shading="pbr", normal_mapping=True)
-    geo = dxr.build_scene_geometry([dxr.procedural.uv_sphere(0.9, 12, 24)])
-    state = dxr.make_scene(geo, cfg)
-    tris, view_proj = setup_frame_triangles(state, cfg)
-    frags = rasterize_packed(tris.packed, cfg.height, cfg.width)
-
-    world = reconstruct_world_positions(frags.depth, view_proj, cfg)
-    ref = apply_normal_mapping(
-        frags, world, cfg, cfg.bump_strength, cfg.bump_frequency
-    )
-    got = _apply_normal_mapping_pallas(
-        frags, cfg, cfg.bump_strength, cfg.bump_frequency, view_proj,
-        interpret=True,
-    )
-    rn, gn = np.asarray(ref.normal), np.asarray(got.normal)
-    np.testing.assert_allclose(gn, rn, atol=2e-4)
-    bg = np.asarray(frags.mesh_id) < 0
-    np.testing.assert_array_equal(gn[bg], np.asarray(frags.normal)[bg])
+    assert BUMP_BLOCK == (8, 128)
+    base = dxr.RendererConfig(width=128, height=64, use_pallas=False,
+                              shading="pbr", normal_mapping=True)
+    geo = dxr.build_scene_geometry([dxr.procedural.uv_sphere(0.8, 12, 24)])
+    state = dxr.make_scene(geo, base)
+    f0 = dxr.render(state, base)
+    f1 = dxr.render(state, dataclasses.replace(base, tile_h=32, tile_w=32))
+    np.testing.assert_array_equal(np.asarray(f0), np.asarray(f1))
 
 
 def test_normal_mapped_frame_renders_and_differs():

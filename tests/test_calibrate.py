@@ -38,7 +38,7 @@ def _scene(cfg, scene="benchmark", n_lights=16):
 def test_autotune_overflow_free_over_orbit(scene):
     cfg = dataclasses.replace(
         dxr.FLAGSHIP_CONFIG, width=256, height=128, use_pallas=False,
-        fused=False, shadows=True, shadow_map_size=128, shadow_tiles_cap=-1,
+        shadows=True, shadow_map_size=128, shadow_tiles_cap=-1,
     )
     state = _scene(cfg, scene)
     cal, report = autotune(state, cfg, yaw_steps=6, margin=0.3)
@@ -50,7 +50,7 @@ def test_autotune_overflow_free_over_orbit(scene):
     assert cal.shadow_tiles_cap % 8 == 0 or cal.shadow_tiles_cap == (
         (cfg.height // 8) * (cfg.width // 128)
     )
-    assert cal.max_live_lights_per_tile <= state.lights.num_point
+    assert cal.max_lights_per_tile <= state.lights.num_point
     assert report["measured"]["pairs_max"] > 0
 
     # Full orbit with the calibrated config: overflow-free on every sample.
@@ -75,7 +75,7 @@ def test_autotune_shadow_tiers_bind_and_match_oracle(scene, monkeypatch):
 
     cfg = dataclasses.replace(
         dxr.FLAGSHIP_CONFIG, width=256, height=128, use_pallas=False,
-        fused=False, shadows=True, shadow_map_size=256,
+        shadows=True, shadow_map_size=256,
     )
     state = _scene(cfg, scene)
     n_tris = state.geometry.tri_mesh_id.shape[0]
@@ -117,7 +117,6 @@ def test_autotune_sort_path_matches_flat_oracle(monkeypatch):
     construction: autotune measured the per-tier occupancy maxima)."""
     cfg = dataclasses.replace(
         dxr.FLAGSHIP_CONFIG, width=256, height=128, use_pallas=False,
-        fused=False,
     )
     state = _scene(cfg)
     cal, _ = autotune(state, cfg, yaw_steps=4, margin=0.3)

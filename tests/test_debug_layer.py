@@ -26,6 +26,17 @@ def test_debug_layer_restores_on_exception():
     assert jax.config.jax_debug_nans == prev
 
 
-def test_enable_compilation_cache_sets_config(tmp_path):
-    enable_compilation_cache(str(tmp_path / "cache"), min_compile_secs=1.0)
-    assert jax.config.jax_compilation_cache_dir == str(tmp_path / "cache")
+def test_enable_compilation_cache_sets_config(monkeypatch):
+    """Without JAX_COMPILATION_CACHE_DIR the cache is <checkout>/.jax_cache
+    (tests/test_dispatch.py covers the variable being set)."""
+    import os
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    checkout = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        path = enable_compilation_cache(min_compile_secs=1.0)
+        assert path == os.path.join(checkout, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)

@@ -166,7 +166,7 @@ def test_band_misaligned_bloom_raises():
 
 
 def test_band_misaligned_bump_raises():
-    # 4 bands of 12 rows: 12 % tile_h(8) != 0 -> derivative blocks would
+    # 4 bands of 12 rows: 12 % 8 (the bump block height) != 0 -> blocks would
     # straddle band boundaries.
     cfg = dxr.RendererConfig(
         width=128, height=48, use_pallas=False, shading="pbr",

@@ -1,16 +1,19 @@
-"""Pallas tile-binned rasterizer: exact agreement with the reference rasterizer
-(interpret mode on CPU), plus binning unit tests."""
-import dataclasses
+"""Tile-binned Triton rasterizer: bit-exact agreement with the reference
+rasterizer (interpret mode on CPU) for several tile shapes, plus binning unit
+tests."""
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import d3d12_deferred_renderer_tpu as dxr
 from d3d12_deferred_renderer_tpu.config import RendererConfig
 from d3d12_deferred_renderer_tpu.ops.raster_pallas import (
     bin_triangles,
     rasterize_binned,
+    rasterize_depth,
 )
 from d3d12_deferred_renderer_tpu.ops.raster_ref import rasterize_packed
 from d3d12_deferred_renderer_tpu.ops.transform import TRI_VALID, setup_frame_triangles
@@ -27,6 +30,22 @@ def scene_tris(cfg, meshes=("cube", "pyramid")):
     return setup_frame_triangles(state, cfg)[0]
 
 
+# Raster-kernel tile shapes under test: the default and the alternatives the
+# tile choice was measured against (all power-of-two Triton blocks).
+TILES = [(8, 128), (16, 64), (32, 32)]
+
+
+def _cfg(width, height, tile, **kw):
+    return RendererConfig(width=width, height=height, tile_h=tile[0],
+                          tile_w=tile[1], **kw)
+
+
+def _assert_planes_equal(pal, ref):
+    """Bit-identical fragment planes (same expressions, same order)."""
+    for got, want in zip(pal, ref):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
 def test_binning_counts_and_order():
     cfg = RendererConfig(width=256, height=64, tile_h=8, tile_w=128,
                          max_tris_per_tile=32)
@@ -41,36 +60,37 @@ def test_binning_counts_and_order():
     T2 = tris.packed.shape[0]
     assert T2 == 36
     assert binned.idx.shape == (8 * 2, min(32, T2))
-    # the compacted stream pads record rows to one full 128-float lane tile
-    # (contiguous DMA blocks) and carries NT+1 segment offsets
-    st = binned.with_stream(tris.packed, cap=64, slack=16)
-    assert st.stream.shape == (64 + 16, 128)
+    # The flat path's record stream is the dense layout: tile t's segment is
+    # its K-slot row (offs[t] = t * K), one 32-float record per row.
+    st = binned.with_stream(tris.packed)
+    assert st.stream.shape == (8 * 2 * 32, 32)
     assert st.offs.shape == (8 * 2 + 1,)
+    np.testing.assert_array_equal(np.asarray(st.offs), np.arange(17) * 32)
 
 
-def test_pallas_matches_reference_scene():
-    cfg = RendererConfig(width=256, height=64, tile_h=8, tile_w=128)
+@pytest.mark.parametrize("tile", TILES)
+def test_pallas_matches_reference_scene(tile):
+    cfg = _cfg(256, 64, tile)
     tris = scene_tris(cfg)
     ref = rasterize_packed(tris.packed, cfg.height, cfg.width)
     pal = rasterize_binned(tris.packed, tris.aabb, cfg, interpret=True)
-    np.testing.assert_array_equal(np.asarray(pal.mesh_id), np.asarray(ref.mesh_id))
-    np.testing.assert_allclose(np.asarray(pal.depth), np.asarray(ref.depth), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(pal.normal), np.asarray(ref.normal), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(pal.uv), np.asarray(ref.uv), atol=1e-5)
+    assert (np.asarray(ref.mesh_id) >= 0).any()
+    _assert_planes_equal(pal, ref)
 
 
-def test_pallas_matches_reference_nondivisible_screen():
+@pytest.mark.parametrize("tile", TILES)
+def test_pallas_matches_reference_nondivisible_screen(tile):
     """Screen size not divisible by the tile size: padded tiles must crop away."""
-    cfg = RendererConfig(width=200, height=52, tile_h=8, tile_w=128)
+    cfg = _cfg(200, 52, tile)
     tris = scene_tris(cfg)
     ref = rasterize_packed(tris.packed, cfg.height, cfg.width)
     pal = rasterize_binned(tris.packed, tris.aabb, cfg, interpret=True)
     assert pal.depth.shape == (52, 200)
-    np.testing.assert_array_equal(np.asarray(pal.mesh_id), np.asarray(ref.mesh_id))
-    np.testing.assert_allclose(np.asarray(pal.depth), np.asarray(ref.depth), atol=1e-6)
+    _assert_planes_equal(pal, ref)
 
 
-def test_pallas_depth_order_parity():
+@pytest.mark.parametrize("tile", TILES)
+def test_pallas_depth_order_parity(tile):
     """Submission order must be preserved through binning (depth-equal first wins)."""
     import tests.test_raster as tr
 
@@ -78,56 +98,45 @@ def test_pallas_depth_order_parity():
     b = {"xy": [(0, 0), (64, 0), (0, 32)], "z": [0.5] * 3, "mesh_id": 2}
     packed = tr.make_packed([a, b])
     aabb = jnp.asarray([[0, 0, 64, 32], [0, 0, 64, 32]], jnp.float32)
-    cfg = RendererConfig(width=128, height=32, tile_h=8, tile_w=128)
+    cfg = _cfg(128, 32, tile)
     pal = rasterize_binned(packed, aabb, cfg, interpret=True)
     mid = np.asarray(pal.mesh_id)
+    assert (mid >= 0).any()
     assert (mid[mid >= 0] == 1).all()
+    _assert_planes_equal(pal, rasterize_packed(packed, 32, 128))
 
 
-def test_gathered_records_path_matches_indirect(monkeypatch):
-    """Both kernel variants (VMEM-resident indirection vs pre-gathered records)
-    must produce identical output."""
-    from d3d12_deferred_renderer_tpu.ops import raster_pallas as rp
-
-    cfg = RendererConfig(width=256, height=64, tile_h=8, tile_w=128)
+@pytest.mark.parametrize("tile", TILES)
+def test_pallas_depth_only_matches_reference(tile):
+    """The depth-only variant (shadow map, prepass, calibration) writes the
+    full rasterizer's depth plane bit for bit."""
+    cfg = _cfg(200, 52, tile)
     tris = scene_tris(cfg)
-    indirect = rp.rasterize_binned(tris.packed, tris.aabb, cfg, interpret=True)
-    monkeypatch.setattr(rp, "VMEM_INDIRECTION_SLOTS", 0)  # force gathered path
-    gathered = rp.rasterize_binned(tris.packed, tris.aabb, cfg, interpret=True)
-    np.testing.assert_array_equal(
-        np.asarray(indirect.mesh_id), np.asarray(gathered.mesh_id)
+    ref = rasterize_packed(tris.packed, cfg.height, cfg.width)
+    depth, overflow = rasterize_depth(
+        tris.packed, tris.aabb, cfg, interpret=True, return_overflow=True
     )
-    np.testing.assert_array_equal(
-        np.asarray(indirect.depth), np.asarray(gathered.depth)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(indirect.normal), np.asarray(gathered.normal)
-    )
+    assert int(overflow) == 0
+    np.testing.assert_array_equal(np.asarray(depth), np.asarray(ref.depth))
 
 
-def test_stream_db_prefetch_matches_single_buffer(monkeypatch):
-    """Double-buffered segment DMA (stream_dma_db) is bit-identical to the
-    single-buffer ladder on both streamed kernels (full raster + depth-only)."""
-    from d3d12_deferred_renderer_tpu.ops import raster_pallas as rp
-
-    cfg = RendererConfig(width=256, height=64, tile_h=8, tile_w=128)
+@pytest.mark.parametrize("traced", [False, True], ids=["static", "traced"])
+@pytest.mark.parametrize("tile", TILES)
+def test_pallas_band_matches_reference(tile, traced):
+    """A band [y0, y0 + band_h) rasterizes exactly the oracle's rows; the
+    offset may be a Python int or traced (the sharded path's axis_index)."""
+    cfg = _cfg(128, 64, tile)
     tris = scene_tris(cfg)
-    monkeypatch.setattr(rp, "VMEM_INDIRECTION_SLOTS", 0)  # force streamed path
-    single = rp.rasterize_binned(tris.packed, tris.aabb, cfg, interpret=True)
-    d_single = rp.rasterize_depth(tris.packed, tris.aabb, cfg, interpret=True)
-    cfg_db = dataclasses.replace(cfg, stream_dma_db=True)
-    double = rp.rasterize_binned(tris.packed, tris.aabb, cfg_db, interpret=True)
-    d_double = rp.rasterize_depth(tris.packed, tris.aabb, cfg_db, interpret=True)
-    np.testing.assert_array_equal(
-        np.asarray(single.mesh_id), np.asarray(double.mesh_id)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(single.depth), np.asarray(double.depth)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(single.normal), np.asarray(double.normal)
-    )
-    np.testing.assert_array_equal(np.asarray(d_single), np.asarray(d_double))
+    ref = rasterize_packed(tris.packed, cfg.height, cfg.width)
+    y0, bh = 32, 32
+
+    def band(off):
+        return rasterize_binned(
+            tris.packed, tris.aabb, cfg, interpret=True, band_h=bh, y_offset=off
+        )
+
+    pal = jax.jit(band)(jnp.int32(y0)) if traced else band(y0)
+    _assert_planes_equal(pal, jax.tree.map(lambda a: a[y0 : y0 + bh], ref))
 
 
 def test_pallas_full_frame_golden_equivalence():

@@ -5,6 +5,7 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import d3d12_deferred_renderer_tpu as dxr
 from d3d12_deferred_renderer_tpu.ops.shadows import (
@@ -49,6 +50,28 @@ def test_shadow_map_sees_occluder():
     d = np.asarray(depth)
     assert (d < 1.0).any()          # something rendered
     assert d.min() >= 0.0
+
+
+@pytest.mark.parametrize("size", [64, 96])
+def test_shadow_map_depth_kernel_matches_oracle(size):
+    """The shadow map through the depth kernel (interpret mode, light-view
+    binning of shadow_bin_config) equals the oracle's map bit for bit, on a
+    map that does and one that does not divide into raster tiles."""
+    cfg = dxr.RendererConfig(
+        width=96, height=64, shading="pbr", shadows=True,
+        shadow_map_size=size, light_direction=(-0.3, -1.0, -0.2),
+    )
+    state = _blocker_scene(cfg)
+    got, lvp, overflow = render_shadow_map(
+        state, cfg, return_overflow=True, interpret=True
+    )
+    want, lvp_ref = render_shadow_map(
+        state, dataclasses.replace(cfg, use_pallas=False)
+    )
+    assert int(overflow) == 0
+    assert (np.asarray(want) < 1.0).any()
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    np.testing.assert_array_equal(np.asarray(lvp), np.asarray(lvp_ref))
 
 
 def test_shadow_darkens_ground_under_cube():

@@ -56,15 +56,10 @@ def main():
     samples = opt("--samples", 24, int)
     n_verify = opt("--verify", 24, int)
 
-    cfg = dataclasses.replace(
-        dxr.FLAGSHIP_CONFIG,
-        use_pallas=jax.default_backend() == "tpu",
-        fused=jax.default_backend() == "tpu",
-    )
+    cfg = dxr.FLAGSHIP_CONFIG
     if "--config4" in args:
         cfg = dataclasses.replace(
             cfg, shadows=True, normal_mapping=True, bloom=True,
-            max_lights_per_tile=128, inkernel_light_cull=False,
         )
     state = make_state(scene, cfg)
 
@@ -74,7 +69,7 @@ def main():
         "bin_expand", "bin_expand_medium", "bin_expand_large",
         "bin_max_small", "bin_max_medium", "bin_max_large", "bin_max_big",
         "bin_stream_cap", "max_tris_per_tile", "shadow_tiles_cap",
-        "max_live_lights_per_tile",
+        "max_lights_per_tile",
     ):
         a, b = getattr(cfg, f), getattr(cal, f)
         mark = "  " if a == b else "->"

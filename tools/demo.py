@@ -32,7 +32,6 @@ def main():
                     "1024; smaller keeps the CPU oracle path tractable)")
     ap.add_argument("--bump", action="store_true", help="procedural normal mapping")
     ap.add_argument("--orbit", action="store_true", help="camera flythrough")
-    ap.add_argument("--fused", action="store_true", help="fused tiled-deferred kernel")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--light-dir", default=None,
                     help="directional light as 'x,y,z' (default: reference)")
@@ -78,20 +77,13 @@ def main():
            if args.shadow_map_size else {}),
         normal_mapping=args.bump,
         animate_camera=args.orbit,
-        fused=args.fused,
-        use_pallas=jax.default_backend() == "tpu",
         **light_kw,
         # Benchmark-scene densities exceed the reference-parity defaults; size
         # the per-tile caps like FLAGSHIP_CONFIG so nothing overflows (the
         # render_stats check below would flag it loudly otherwise).
         **(
             {"max_tris_per_tile": 1024,
-             "max_lights_per_tile": max(args.lights, 64),
-             # The live-light list cap binds on the TPU fused/Pallas paths;
-             # the demo's wide-radius lights (radius 3.0 vs the bench's 1.2)
-             # can exceed FLAGSHIP's 128 — cap == light count can never
-             # overflow (costs only list DMA, fine for a demo).
-             "max_live_lights_per_tile": max(args.lights, 64)}
+             "max_lights_per_tile": max(args.lights, 64)}
             if args.scene == "benchmark" else {}
         ),
     )
@@ -119,8 +111,7 @@ def main():
         geo, cfg, lights=lights, placement=placement, materials=materials
     )
 
-    # No-silent-drop check (loud even on transports without host callbacks,
-    # where the in-program overflow warning print is unavailable).
+    # No-silent-drop check.
     import jax.numpy as jnp  # noqa: F401
     from d3d12_deferred_renderer_tpu import frame as fr
 

@@ -11,7 +11,7 @@ AABB-box rasterizer — the full XLA oracle is O(T*H*W), hours at 1080p):
   - lit-covered (1,128) sub-rows
 
 "lit" = any pixel with geometry AND NdotL > 0 for the directional light,
-from the interpolated geometric normal (the fused split's mask additionally
+from the interpolated geometric normal (a mask from shading would additionally
 sees the bump perturbation and unorm10 quantization — sign flips from those
 are local and cannot empty/fill a whole 128-px segment; cap margins absorb
 them, and the runtime overflow counter stays loud regardless).
@@ -44,7 +44,7 @@ def main():
     if "--steps" in sys.argv:
         steps = int(sys.argv[sys.argv.index("--steps") + 1])
     cfg = dataclasses.replace(
-        dxr.FLAGSHIP_CONFIG, use_pallas=False, fused=False,
+        dxr.FLAGSHIP_CONFIG, use_pallas=False,
         shadows=True, normal_mapping=True, bloom=True,
     )
     _, state, _ = build(cfg)

@@ -1,37 +1,22 @@
-"""Roofline / utilization analysis: how far is each stage from the chip floor?
+"""Roofline model: how far is each frame stage from the card's floor?
 
-For every pipeline stage of the flagship (and --config4 / --w4k) frame this
-prints the analytically-counted HBM bytes and VPU/MXU FLOPs next to the
-measured per-stage time (from `tools/profile_scan.py`'s in-scan deltas, or
-measured live with --measure on the TPU), the implied floor at v5e peaks, and
-which resource bounds the stage.  The point (VERDICT r3 #6): say with
-arithmetic whether the remaining milliseconds are claimable.
+For every stage of the flagship (or --config4 / --w4k) frame this prints the
+analytically counted device-memory bytes and float32 FLOPs, and the floor
+they imply at the card's published peaks.  With --times (per-stage device
+milliseconds from tools/profile_frame.py) it adds each stage's share of
+its floor and which resource bounds it.
 
-v5e peak assumptions (per chip, documented so the arithmetic is checkable):
-  HBM   819 GB/s
-  MXU   197 TFLOP/s bf16 (structurally idle here: the frame's FLOPs are
-        elementwise f32 shading, not matmul — only setup's 4x4 transforms and
-        the one-hot contractions touch it, both tiny)
-  VPU   f32, 8x128 lanes x 4 ALUs x ~1.5 GHz. With every ALU issuing an FMA
-        that is ~12 TFLOP/s; shading code is not pure FMA (selects, compares,
-        transcendental sequences), so the table uses 6 TFLOP/s as the
-        practical ceiling and marks stages within 3x of it VPU-bound.
-  GATHER ~10.4 ns per 32-byte VMEM row gather (measured, tools/ubench_gather.py)
-        — the PCF compare is gather-issue-bound, not FLOP- or byte-bound.
-
-FLOP counts are per-operation estimates of the emitted elementwise sequence
-(annotated inline); they are good to ~2x, which is enough to separate
-"bandwidth-bound" (floor within 2x of measured) from "nowhere near any floor"
-(launch/sort/gather overheads own the time).
+Peaks come from PEAKS, keyed by JAX's device_kind (--device; an unknown
+device is an error, not a default).  FLOP counts are per-operation estimates
+of the emitted elementwise sequence (annotated inline, good to ~2x), enough
+to separate "bandwidth-bound" from "nowhere near any floor".
 
 Scene-dependent work sizes (live records, binned pairs, per-tile live-light
-sums, covered tiles) are measured from the actual benchmark scene on CPU —
-not assumed.
+sums, covered tiles) are measured from the actual benchmark scene on the CPU.
 
 Usage:
-  python tools/roofline.py                # static model + last recorded times
-  python tools/roofline.py --measure      # re-measure stage times on the TPU
-  python tools/roofline.py --config4 [--measure]
+  python tools/roofline.py [--config4] [--w4k] [--device KIND]
+                           [--times ms,ms,...]
 """
 from __future__ import annotations
 
@@ -51,19 +36,31 @@ from d3d12_deferred_renderer_tpu.ops.transform import (
 )
 from d3d12_deferred_renderer_tpu.scene import animate
 
-# --- chip peaks (see module docstring) ---
-HBM_GBPS = 819.0
-VPU_TFLOPS = 6.0          # practical elementwise f32 ceiling (12 if pure FMA)
-GATHER_NS = 10.4          # measured per 32-byte row gather
+# Published dense peaks per device_kind (NVIDIA H100 SXM data sheet, at the
+# 700 W power limit): device memory GB/s and float32 (non-tensor-core)
+# TFLOP/s.  The frame's arithmetic is elementwise float32.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"hbm_gbps": 3350.0, "fp32_tflops": 67.0},
+}
+
+
+def peaks(device_kind: str) -> dict:
+    if device_kind not in PEAKS:
+        raise ValueError(
+            f"no peak table for device {device_kind!r}; add it to PEAKS"
+        )
+    return PEAKS[device_kind]
+
 
 # --- per-unit FLOP estimates (annotated; ~2x accuracy) ---
 F_SETUP_PER_RECORD = 260   # 3 verts x (4x4 MVP mul 28 + divide 6) + cull/pack ~60
-F_RASTER_PER_PAIRPX = 18   # 3 edge fns (2 FMA each) + z/rw interp + winner select
-F_CULL_PER_LIGHTSUB = 24   # 2 slab distance tests vs an 8-light sublane chunk
+F_RASTER_PER_PAIRPX = 30   # 3 edge fns + z/rw interp + 5 attrs + depth test
 F_GGX_PER_PXLIGHT = 110    # dist/falloff 20, NdotL/H 25, D+G+F (pow5) 40, acc 25
-F_RESOLVE_PER_PX = 120     # directional GGX + ambient + reinhard + gamma pow
+F_RESOLVE_PER_PX = 150     # decode + world + directional GGX + ambient
+F_POST_PER_PX = 40         # reinhard + gamma pow + u8
 F_BUMP_PER_PX = 80         # analytic height-field derivatives + TBN perturb
 F_PCF_FILTER_PER_PX = 40   # bilinear weights + 4 compares + blend
+SHADE_TILE = 32            # ops/lighting_pallas.TILE
 
 
 def measure_scene(cfg, yaw_samples=4):
@@ -78,7 +75,7 @@ def measure_scene(cfg, yaw_samples=4):
     from _cpu_raster import raster_depth_normal
     from bench import build
 
-    cpu_cfg = dataclasses.replace(cfg, use_pallas=False, fused=False)
+    cpu_cfg = dataclasses.replace(cfg, use_pallas=False)
     _, state, _ = build(cpu_cfg)
     H, W = cfg.height, cfg.width
     TH, TW = cfg.tile_h, cfg.tile_w
@@ -110,7 +107,7 @@ def measure_scene(cfg, yaw_samples=4):
         out["covered"] = max(out["covered"],
                              int((d_t.min(axis=1) < 1.0).sum()))
         tl = cull_lights_to_tiles(
-            jnp.asarray(depth), s.lights, cpu_cfg, vp, tile=(TH, TW),
+            jnp.asarray(depth), s.lights, cpu_cfg, vp, tile=SHADE_TILE,
             max_per_tile=s.lights.num_point,
         )
         out["light_entries"] = max(out["light_entries"],
@@ -136,132 +133,112 @@ def static_sort_keys(cfg):
 
 
 def build_model(cfg, m):
-    """[(stage, bytes, flops, gathers, note)] for one frame at `cfg`."""
+    """[(stage, bytes, flops, note)] for one frame at `cfg` (staged path:
+    XLA setup and binning, Triton raster and shading kernels, XLA post)."""
     H, W = cfg.height, cfg.width
     px = H * W
     keys, nt = static_sort_keys(cfg)
     T, live, pairs = m["T"], m["live"], m["pairs"]
     covered_px = m["covered"] * cfg.tile_h * cfg.tile_w
     rec_b = TRI_STRIDE * 4
-    stream_rows = min(cfg.bin_stream_cap, pairs + nt)  # segment-aligned rows
-    L = 256 if cfg.max_lights_per_tile >= 256 else cfg.max_lights_per_tile
+    tile_px = cfg.tile_h * cfg.tile_w
 
     stages = []
     # setup: fv column buffers in (3 verts x 8 f32 attrs), packed+aabb out.
     stages.append((
         "setup", T * (3 * 8 + TRI_STRIDE + 4) * 4, live * F_SETUP_PER_RECORD,
-        0, f"T={T} records ({live} live)",
+        f"T={T} records ({live} live)",
     ))
-    # bin: key emit + one int32 sort of the static array + stream row gather.
-    # Sort traffic modeled as ~log2(n) read+write passes (optimistic for a
-    # bitonic network; the measured ns/key column is the honest number).
+    # binning: key emit + one int32 sort of the static array + stream row
+    # gather; sort traffic modeled as ~log2(n) read+write passes.
     lg = max(1, int(np.ceil(np.log2(max(keys, 2)))))
-    sort_bytes = keys * 8 * 2 * lg
     stages.append((
-        "bin+sort+stream",
-        keys * 8 + sort_bytes + (pairs + stream_rows) * rec_b,
-        keys * 8, 0,
-        f"{keys} static keys, {pairs} pairs -> [{cfg.bin_stream_cap},32] stream",
+        "binning", keys * 8 + keys * 8 * 2 * lg + pairs * 2 * rec_b, keys * 8,
+        f"{keys} static keys, {pairs} pairs",
     ))
+    # raster kernel: each tile program reads its records, writes 7 planes.
+    stages.append((
+        "raster", pairs * rec_b + px * 7 * 4,
+        pairs * tile_px * F_RASTER_PER_PAIRPX,
+        f"{pairs} (tile, triangle) pairs x {tile_px} px",
+    ))
+    stages.append((
+        "gbuffer", px * (7 * 4 + 9 * 4), px * 40, "planes in, G-buffer out",
+    ))
+    if cfg.normal_mapping:
+        stages.append((
+            "bump", px * 10 * 4, covered_px * F_BUMP_PER_PX, "XLA block path",
+        ))
     if cfg.shadows:
-        # Shadow-map raster: same binning machinery at SxS into a depth plane,
-        # then quad-packing the (S+1)^2 x 4 compare table.
         S = cfg.shadow_map_size
         stages.append((
-            "shadow_map", keys * 8 + pairs * rec_b + S * S * 4
-            + (S + 1) ** 2 * 4 * 4 * 2,
-            live * F_SETUP_PER_RECORD + pairs * 64 * F_RASTER_PER_PAIRPX,
-            0, f"{S}x{S} depth + quad-pack table",
+            "shadow_map", keys * 8 + pairs * rec_b + S * S * 4,
+            live * F_SETUP_PER_RECORD + pairs * tile_px * F_RASTER_PER_PAIRPX,
+            f"{S}x{S} depth",
         ))
-        # PCF visibility: ONE 32-byte row gather per covered pixel + filter.
-        pcf_tiles = (cfg.shadow_tiles_cap if cfg.shadow_tiles_cap > 0 else nt)
-        pcf_px = pcf_tiles * cfg.tile_h * cfg.tile_w
+        pcf_tiles = cfg.shadow_tiles_cap if cfg.shadow_tiles_cap > 0 else nt
+        pcf_px = pcf_tiles * 8 * 128
         stages.append((
-            "pcf_vis", pcf_px * (32 + 4 + 4), pcf_px * F_PCF_FILTER_PER_PX,
-            pcf_px, f"{pcf_tiles} tiles x {cfg.tile_h * cfg.tile_w} px, "
-            "1 row-gather each",
+            "pcf", pcf_px * (32 + 4 + 4), pcf_px * F_PCF_FILTER_PER_PX,
+            f"{pcf_tiles} covered tiles",
         ))
-    # mono-kernel: stream segments in, lights in, frame out; G-buffer lives in
-    # VMEM (never touches HBM) — the core TPU-native design choice.
-    avg_px_per_pair = 64  # measured mean covered px per binned (tile,tri) pair
-    light_flops = m["light_entries"] * cfg.tile_h * cfg.tile_w \
-        * F_GGX_PER_PXLIGHT
-    cull_flops = (L * (nt * 2) * F_CULL_PER_LIGHTSUB
-                  if cfg.inkernel_light_cull else 0)
-    out_bytes = px * (3 * 4 if cfg.bloom else 3)
-    extra_planes = px * 4 * 4 if cfg.deferred_directional else 0
+    # shading kernel: G-buffer + depth (+ vis) in, linear HDR out.
+    light_flops = m["light_entries"] * SHADE_TILE ** 2 * F_GGX_PER_PXLIGHT
     stages.append((
-        "mono-kernel",
-        pairs * rec_b + L * 12 * 4 * (H // cfg.tile_h) + out_bytes
-        + extra_planes + (covered_px * 4 if cfg.shadows else 0),
-        pairs * avg_px_per_pair * F_RASTER_PER_PAIRPX + light_flops
-        + cull_flops + px * F_RESOLVE_PER_PX
-        + (covered_px * F_BUMP_PER_PX if cfg.normal_mapping else 0),
-        0,
-        f"{pairs} pairs raster, {m['light_entries']} tile-light entries, "
-        f"{px / 1e6:.1f} Mpx resolve",
+        "shading", px * (9 + (1 if cfg.shadows else 0) + 3) * 4,
+        light_flops + px * F_RESOLVE_PER_PX,
+        f"{m['light_entries']} tile-light entries",
     ))
-    if cfg.deferred_directional:
-        stages.append((
-            "dir_resolve", px * (4 * 4 + 3) + covered_px * 4,
-            px * F_RESOLVE_PER_PX, 0, "planes in, u8 out",
-        ))
-    if cfg.bloom:
-        stages.append((
-            "bloom+post", px * 4 * 4 * 6, px * 200, 0,
-            "threshold/blur/combine chain (~6 full-res passes)",
-        ))
+    stages.append((
+        "post", px * (3 * 4 + 3) * (4 if cfg.bloom else 1),
+        px * F_POST_PER_PX * (4 if cfg.bloom else 1), "tonemap/gamma/u8",
+    ))
     return stages
 
 
-def report(stages, times_ms=None):
-    total_b = sum(s[1] for s in stages)
-    total_f = sum(s[2] for s in stages)
-    print(f"{'stage':>16} {'HBM MB':>8} {'floor us':>9} {'GFLOP':>7} "
-          f"{'VPU ms':>7} {'gathers':>8} {'gthr ms':>8}"
+def report(stages, pk, times_ms=None):
+    gbps, tflops = pk["hbm_gbps"], pk["fp32_tflops"]
+    print(f"{'stage':>10} {'MB':>8} {'mem us':>8} {'GFLOP':>7} {'flop us':>8}"
           + ("  measured  bound" if times_ms else ""))
-    for i, (name, b, f, g, note) in enumerate(stages):
-        hbm_us = b / (HBM_GBPS * 1e3)
-        vpu_ms = f / (VPU_TFLOPS * 1e9)
-        gthr_ms = g * GATHER_NS / 1e6
-        row = (f"{name:>16} {b / 1e6:8.1f} {hbm_us:9.1f} {f / 1e9:7.2f} "
-               f"{vpu_ms:7.3f} {g:8d} {gthr_ms:8.2f}")
+    for i, (name, b, f, note) in enumerate(stages):
+        mem_us = b / (gbps * 1e3)
+        flop_us = f / (tflops * 1e6)
+        row = (f"{name:>10} {b / 1e6:8.1f} {mem_us:8.1f} {f / 1e9:7.2f} "
+               f"{flop_us:8.1f}")
         if times_ms:
-            t = times_ms[i]
-            floor = max(hbm_us / 1e3, vpu_ms, gthr_ms)
-            which = ("gather" if gthr_ms == floor and g else
-                     "VPU" if vpu_ms >= hbm_us / 1e3 else "HBM")
-            row += (f"  {t:7.3f}ms  {which}-floor {floor:6.3f}ms "
-                    f"({t / max(floor, 1e-9):4.1f}x off)")
+            t_us = times_ms[i] * 1e3
+            floor = max(mem_us, flop_us)
+            which = "memory" if mem_us >= flop_us else "fp32"
+            row += f"  {times_ms[i]:7.3f}ms  {which} {floor / t_us:6.1%} of floor"
         print(row + f"   | {note}")
-    print(f"{'TOTAL':>16} {total_b / 1e6:8.1f} "
-          f"{total_b / (HBM_GBPS * 1e3):9.1f} {total_f / 1e9:7.2f} "
-          f"{total_f / (VPU_TFLOPS * 1e9):7.3f}")
 
 
 def main():
     config4 = "--config4" in sys.argv
-    cfg = dataclasses.replace(dxr.FLAGSHIP_CONFIG, use_pallas=True, fused=True)
+    cfg = dxr.FLAGSHIP_CONFIG
     if config4:
         cfg = dataclasses.replace(
-            cfg, shadows=True, normal_mapping=True, bloom=True,
-            max_lights_per_tile=128, inkernel_light_cull=True,
-            deferred_directional=True,
+            cfg, shadows=True, normal_mapping=True, bloom=True, fxaa=True
         )
     if "--w4k" in sys.argv:
         cfg = dataclasses.replace(cfg, width=3840, height=2160)
+    kind = "NVIDIA H100 80GB HBM3"
+    if "--device" in sys.argv:
+        kind = sys.argv[sys.argv.index("--device") + 1]
+    pk = peaks(kind)
 
     jax.config.update("jax_platforms", "cpu")  # scene stats are CPU work
     m = measure_scene(cfg)
     stages = build_model(cfg, m)
 
     times = None
-    if "--times" in sys.argv:  # comma-separated per-stage ms, profile_scan deltas
+    if "--times" in sys.argv:  # comma-separated per-stage device ms
         times = [float(x) for x in
                  sys.argv[sys.argv.index("--times") + 1].split(",")]
-        assert len(times) == len(stages), \
-            f"need {len(stages)} times: {[s[0] for s in stages]}"
-    report(stages, times)
+        if len(times) != len(stages):
+            raise SystemExit(f"need {len(stages)} times: {[s[0] for s in stages]}")
+    print(f"peaks for {kind}: {pk}")
+    report(stages, pk, times)
 
 
 if __name__ == "__main__":
